@@ -1,0 +1,1487 @@
+r"""Level-synchronous batched BitBirch engine on PyTorch (CPU or CUDA).
+
+Port of ``bblean_tpu/engine/batch.py``'s fit path.  The CF-tree is flattened
+to depth 2 and stored as flat device tables (see :class:`BatchState`):
+
+- **groups**: a routing table of group majority centroids ``(G, F) int8``
+  searched with an int8 matrix product per step, plus group CF aggregates;
+- **clusters**: a flat count table plus a sparse linear-sum pool (only
+  multi-member clusters own an ``(F,) int32`` pool row) and per-group
+  packed-centroid tiles ``(G, Fc, F/8) uint8``, which the in-group search
+  scores with AND + popcount (the CUDA kernel of
+  ``bblean_tpu_torch/ops/tile_search.py`` on the card).
+
+Each batch step routes every row to a group once, then runs insert rounds:
+search the routed tile, test the merge criterion, commit serial-prefix
+segments per candidate cluster, elect leaders among rejected rows for new
+clusters, scatter the results.  Rows that exhaust ``max_rounds`` go back to
+the host driver, which splits oversized groups and retries them.
+
+Differences from the JAX engine.  Only the first can change a label, and
+only where a cluster's sums pass 2^24 (tests hold the rest to JAX exactly):
+
+- iSIM is the correctly rounded f32 value of exact integer sums
+  (``ops/isim.py``); JAX's f32 reduction gives the same value wherever its
+  steps are exact and a backend-dependent one past 2^24.
+- The JAX ``while_loop`` conditions, the per-batch split ``lax.cond`` and
+  the route's live-block count become scalar reads on the host (counted in
+  :data:`host_syncs`); the ``lax.scan`` over a window's batches becomes a
+  Python loop, and all-padding batches of a window skip their step (it
+  would commit nothing).
+- JAX donated the state to its jitted steps; here the step functions
+  update the state's tables IN PLACE and return the state with its new
+  counters.  Callers that need the old tables must copy them first.
+- JAX scatters with ``mode="drop"`` to an out-of-bounds index.  torch has no
+  drop mode, so masked rows are sent to the table's top slot, which the
+  host keeps free as a guard (``_ensure_capacity``), and write back the
+  guard's own value (``_drop_set_``) or add zero (``_drop_add_``).  This
+  needs no device-to-host sync.
+- The in-group search is always the sorted search of
+  ``ops/tile_search.py``: its CUDA kernel on the card, its plain version on
+  the CPU.  The TPU engine kept its Pallas search opt-in.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+import torch
+
+from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
+from bblean_tpu_torch.ops.merges import merge_accept_batch
+from bblean_tpu_torch.ops.packing import (
+    pack_fingerprints_device,
+    unpack_fingerprints_device,
+)
+from bblean_tpu_torch.ops.tile_search import (
+    _popcount_u8,
+    sorted_search_plan,
+    tile_search_planned,
+    tile_search_sorted,
+)
+
+__all__ = ["BatchTree", "BatchState"]
+
+_NEG = -2.0  # below any similarity
+_BIG = 1 << 30  # sort key of masked rows
+_I32 = torch.int32
+# Routing/row centroids are exactly 0/1 valued, so int8 products with int32
+# accumulation are exact
+_CENT_DT = torch.int8
+
+# Device-to-host scalar reads made by the engine (round-loop conditions,
+# split predicates, live-group counts, flush-boundary pulls)
+host_syncs = 0
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    global host_syncs
+    host_syncs += 1
+    return t.cpu().numpy()
+
+
+def _host_int(t: torch.Tensor) -> int:
+    return int(_host(t))
+
+
+class BatchState(tp.NamedTuple):
+    r"""Device-side depth-2 CF-tree (capacity-padded flat tables); the same
+    fields, shapes and dtypes as the JAX engine's ``BatchState``.
+
+    The top slot of the cluster, group and pool tables is a guard: the host
+    never lets a live entry reach it, masked scatters park there, and the
+    guard group's tile holds no live cell.
+    """
+
+    # Sparse linear-sum pool (multi-member clusters only)
+    ls: torch.Tensor  # (P_cap, F) int32 linear sums
+    num_ls: torch.Tensor  # () int32 allocated pool rows
+    # Leaf clusters (flat)
+    ls_ref: torch.Tensor  # (C_cap,) int32 pool row per slot, -1 = singleton
+    n: torch.Tensor  # (C_cap,) int32 sizes (0 = empty slot)
+    group: torch.Tensor  # (C_cap,) int32 owning group id
+    pos: torch.Tensor  # (C_cap,) int32 position within the group tile
+    num: torch.Tensor  # () int32 live clusters
+    # Per-group packed-centroid tiles (the in-group search set)
+    t_pk: torch.Tensor  # (G_cap, Fc, F8) uint8 packed centroids
+    t_pops: torch.Tensor  # (G_cap, Fc) int32 centroid popcounts
+    t_slot: torch.Tensor  # (G_cap, Fc) int32 cluster slot per cell (-1 empty)
+    # Groups (routing level)
+    g_ls: torch.Tensor  # (G_cap, F) int32
+    g_n: torch.Tensor  # (G_cap,) int32 samples under the group
+    g_cent: torch.Tensor  # (G_cap, F) int8 routing centroids (0/1 values)
+    g_pops: torch.Tensor  # (G_cap,) int32
+    g_count: torch.Tensor  # (G_cap,) int32 clusters in the group
+    g_num: torch.Tensor  # () int32 live groups
+
+
+def _init_state(
+    capacity: int,
+    g_capacity: int,
+    tile: int,
+    n_features: int,
+    ls_capacity: int | None = None,
+    device: str | torch.device = "cpu",
+) -> BatchState:
+    f8 = (n_features + 7) // 8
+    if ls_capacity is None:
+        ls_capacity = capacity
+
+    def z(*shape, dtype=_I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=_I32, device=device)
+
+    return BatchState(
+        ls=z(ls_capacity, n_features),
+        num_ls=z(),
+        ls_ref=full((capacity,), -1),
+        n=z(capacity),
+        group=z(capacity),
+        pos=z(capacity),
+        num=z(),
+        t_pk=z(g_capacity, tile, f8, dtype=torch.uint8),
+        t_pops=z(g_capacity, tile),
+        t_slot=full((g_capacity, tile), -1),
+        g_ls=z(g_capacity, n_features),
+        g_n=z(g_capacity),
+        g_cent=z(g_capacity, n_features, dtype=_CENT_DT),
+        g_pops=z(g_capacity),
+        g_count=z(g_capacity),
+        g_num=torch.ones((), dtype=_I32, device=device),  # group 0 exists
+    )
+
+
+def _cluster_ls_of(
+    state: BatchState, slots: torch.Tensor, n_features: int
+) -> torch.Tensor:
+    r"""(M, F) int32 linear sums of cluster ``slots``: the pool row when
+    allocated, else the exact singleton bits from the packed tile entry."""
+    slots = slots.long()
+    ref = state.ls_ref[slots]
+    pool_rows = state.ls[ref.clamp_min(0).long()]
+    pk = state.t_pk[state.group[slots].long(), state.pos[slots].long()]
+    bits = unpack_fingerprints_device(pk, n_features).to(_I32)
+    return torch.where((ref >= 0)[:, None], pool_rows, bits)
+
+
+def _pad_rows(t: torch.Tensor, rows: int, fill: int = 0) -> torch.Tensor:
+    extra = rows - t.shape[0]
+    if extra <= 0:
+        return t
+    pad = torch.full((extra, *t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+    return torch.cat([t, pad])
+
+
+def _grow_state(
+    state: BatchState, new_c: int, new_g: int, new_p: int | None = None
+) -> BatchState:
+    p_rows = new_p if new_p is not None else state.ls.shape[0]
+    return BatchState(
+        ls=_pad_rows(state.ls, p_rows),
+        num_ls=state.num_ls,
+        ls_ref=_pad_rows(state.ls_ref, new_c, -1),
+        n=_pad_rows(state.n, new_c),
+        group=_pad_rows(state.group, new_c),
+        pos=_pad_rows(state.pos, new_c),
+        num=state.num,
+        t_pk=_pad_rows(state.t_pk, new_g),
+        t_pops=_pad_rows(state.t_pops, new_g),
+        t_slot=_pad_rows(state.t_slot, new_g, -1),
+        g_ls=_pad_rows(state.g_ls, new_g),
+        g_n=_pad_rows(state.g_n, new_g),
+        g_cent=_pad_rows(state.g_cent, new_g),
+        g_pops=_pad_rows(state.g_pops, new_g),
+        g_count=_pad_rows(state.g_count, new_g),
+        g_num=state.g_num,
+    )
+
+
+# -- torch counterparts of JAX's segment ops and drop-mode scatters ----------
+
+
+def _isum(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+    r"""int32 sum (torch sums integers to int64 by default)."""
+    if dim is None:
+        return x.sum(dtype=_I32)
+    return x.sum(dim=dim, dtype=_I32)
+
+
+def _icumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim, dtype=_I32)
+
+
+def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    out = torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg.long(), vals)
+
+
+def _segment_min(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    r"""``jax.ops.segment_min``: empty segments hold int32 max."""
+    out = torch.full((n,), torch.iinfo(_I32).max, dtype=_I32, device=vals.device)
+    return out.scatter_reduce_(0, seg.long(), vals.to(_I32), "amin", include_self=False)
+
+
+def _segment_max(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    r"""``jax.ops.segment_max``: empty segments hold int32 min."""
+    out = torch.full((n,), torch.iinfo(_I32).min, dtype=_I32, device=vals.device)
+    return out.scatter_reduce_(0, seg.long(), vals.to(_I32), "amax", include_self=False)
+
+
+def _bcast(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    return mask.view(mask.shape + (1,) * (val.dim() - mask.dim()))
+
+
+def _drop_set_(
+    tab: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, keep: torch.Tensor
+) -> None:
+    r"""In place ``tab[idx] = val`` where ``keep`` and ``idx`` is in range
+    (JAX ``.at[idx].set(val, mode="drop")`` with the masked rows' index
+    out of range).  Kept indices must be unique and must not be the guard
+    (top) slot; masked rows write the guard's own value back to it."""
+    cap = tab.shape[0]
+    keep = keep & (idx < cap)
+    guard = cap - 1
+    i = torch.where(keep, idx, guard).long()
+    val = val.to(tab.dtype)
+    v = torch.where(_bcast(keep, val), val, tab[guard])
+    tab.index_put_((i,), v)
+
+
+def _drop_add_(
+    tab: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, keep: torch.Tensor
+) -> None:
+    r"""In place ``tab[idx] += val`` where ``keep`` and ``idx`` is in range;
+    masked rows add zero to rows spread over the table (integer adds are
+    exact in any order, and spreading avoids one hot address)."""
+    cap = tab.shape[0]
+    keep = keep & (idx < cap)
+    spread = torch.arange(idx.shape[0], device=idx.device) % cap
+    i = torch.where(keep, idx.long(), spread)
+    val = val.to(tab.dtype)
+    v = torch.where(_bcast(keep, val), val, torch.zeros((), dtype=tab.dtype, device=tab.device))
+    tab.index_add_(0, i, v)
+
+
+def _flat2(tab: torch.Tensor) -> torch.Tensor:
+    r"""View (G, Fc, ...) as (G * Fc, ...) for scatters at (group, pos)."""
+    return tab.view(tab.shape[0] * tab.shape[1], *tab.shape[2:])
+
+
+# -- int8 products -------------------------------------------------------------
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def _pad_int8(a: torch.Tensor, min_rows: int = 1) -> torch.Tensor:
+    r"""Zero-pad an (R, K) int8 matrix to rows >= ``min_rows`` and both
+    dims multiples of 8 (``torch._int_mm``'s CUDA constraints; a zero row or
+    column adds nothing to a product)."""
+    r, k = a.shape
+    rp = max(_round_up(r, 8), min_rows)
+    kp = _round_up(k, 8)
+    if (rp, kp) == (r, k):
+        return a.contiguous()
+    out = torch.zeros((rp, kp), dtype=a.dtype, device=a.device)
+    out[:r, :k] = a
+    return out
+
+
+def _int8_gram(a_pad: torch.Tensor, b: torch.Tensor, rows: int) -> torch.Tensor:
+    r"""Exact int32 ``a @ b.T`` of 0/1 int8 matrices (``a_pad`` from
+    :func:`_pad_int8` with more than 16 rows) -> (rows, len(b))."""
+    b_pad = _pad_int8(b)
+    return torch._int_mm(a_pad, b_pad.t())[:rows, : b.shape[0]]
+
+
+def _tanimoto_gram(
+    cent: torch.Tensor, pop: torch.Tensor
+) -> torch.Tensor:
+    r"""All-pairs f32 Tanimoto of 0/1 rows (the leader election's sims)."""
+    m = cent.shape[0]
+    inter = _int8_gram(_pad_int8(cent, 17), cent, m).to(torch.float32)
+    union = (pop[:, None] + pop[None, :]).to(torch.float32) - inter
+    return inter / union.clamp_min(1.0)
+
+
+def _route_groups(
+    row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
+    row_pop: torch.Tensor,  # (M,) int32
+    g_cent: torch.Tensor,  # (G_cap, F) int8 (0/1 values)
+    g_pops: torch.Tensor,  # (G_cap,) int32
+    g_num: int,  # live groups (read on the host once per step)
+    pending: torch.Tensor,  # (M,) bool
+    block: int,
+) -> torch.Tensor:
+    r"""Argmax Tanimoto over live group centroids, in blocks of ``block``
+    groups (first argmax overall: a later block wins only when strictly
+    better)."""
+    m = row_cent.shape[0]
+    dev = row_cent.device
+    g_cap = g_cent.shape[0]
+    block = min(block, g_cap)
+    n_blocks = (g_num + block - 1) // block
+    a_pad = _pad_int8(row_cent, 17)
+    best_sim = torch.full((m,), _NEG, dtype=torch.float32, device=dev)
+    best_idx = torch.zeros((m,), dtype=_I32, device=dev)
+    iota = torch.arange(block, dtype=_I32, device=dev)
+    for b in range(n_blocks):
+        start = b * block
+        s0 = min(start, g_cap - block)  # lax.dynamic_slice clamps its start
+        cb = g_cent[s0 : s0 + block]
+        pb = g_pops[s0 : s0 + block]
+        inter = _int8_gram(a_pad, cb, m).to(torch.float32)
+        union = (row_pop[:, None] + pb[None, :]).to(torch.float32) - inter
+        sims = inter / union.clamp_min(1.0)
+        cols = start + iota
+        sims = torch.where((cols < g_num)[None, :] & pending[:, None], sims, _NEG)
+        blk_best = sims.amax(dim=1)
+        blk_idx = start + torch.argmax(sims, dim=1).to(_I32)
+        take = blk_best > best_sim
+        best_sim = torch.where(take, blk_best, best_sim)
+        best_idx = torch.where(take, blk_idx, best_idx)
+    return torch.where(pending, best_idx, 0)
+
+
+def _group_ids_by_key(
+    key: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    r"""Stable grouping of rows by an int key -> (order, group_of_sorted,
+    is_group_start); equal keys form one group, ordered by row index."""
+    sorted_key, order = torch.sort(key, stable=True)
+    is_start = torch.ones_like(sorted_key, dtype=torch.bool)
+    is_start[1:] = sorted_key[1:] != sorted_key[:-1]
+    group = _icumsum(is_start) - 1
+    return order, group, is_start
+
+
+def _segment_rank(grp: torch.Tensor, mask_sorted: torch.Tensor) -> torch.Tensor:
+    r"""Rank of each (sorted) row within its segment, counting masked rows."""
+    inc = mask_sorted.to(_I32)
+    csum = _icumsum(inc)
+    seg_start_csum = _segment_min(csum - inc, grp, grp.shape[0])
+    return csum - inc - seg_start_csum[grp.long()]
+
+
+def _scatter_perm(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    r"""``out[order] = vals`` for a permutation ``order`` (a fresh tensor)."""
+    out = torch.empty_like(vals)
+    out[order] = vals
+    return out
+
+
+def _insert_round(
+    state: BatchState,
+    pending: torch.Tensor,
+    assigned: torch.Tensor,
+    strikes: torch.Tensor,
+    row_group: torch.Tensor,
+    row_ls: torch.Tensor,
+    row_n: torch.Tensor,
+    row_cent: torch.Tensor,
+    row_pk: torch.Tensor,
+    row_pop: torch.Tensor,
+    threshold: torch.Tensor,
+    tolerance: torch.Tensor,
+    *,
+    criterion: str,
+    row_sims: torch.Tensor | None = None,
+    search_plan: tuple[torch.Tensor, ...] | None = None,
+) -> tuple[BatchState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    r"""One insertion round over a row window of any width.
+
+    Every computation is masked by ``pending`` and depends on rows only
+    through their relative order, so a round over a compacted subset of the
+    rows commits exactly what the full-width round would (what makes the
+    narrow retry rounds label-preserving).  ``row_group`` is the per-row
+    routed group, computed once per step.  ``row_sims`` optionally carries
+    the step-constant all-pairs row Tanimoto; None computes it in-round.
+    ``search_plan`` is the step's sort plan ``(rows, pops, keys, order)``;
+    None sorts in-call.
+
+    Updates the state's tables in place; returns (state with its new
+    counters, pending, assigned, strikes).
+    """
+    m, n_features = row_ls.shape
+    dev = row_ls.device
+    tile = state.t_pk.shape[1]
+    row_idx = torch.arange(m, dtype=_I32, device=dev)
+    guard_g = state.g_ls.shape[0] - 1
+    force_lead = strikes >= 2
+
+    # ---- 2. in-group candidate search (sorted tile search) ----
+    if search_plan is not None:
+        srows, spops, skey, order = search_plan
+        best_sim, best = tile_search_planned(
+            srows, spops, skey, order, state.t_pk, state.t_pops,
+            state.t_slot, pending,
+        )
+    else:
+        best_sim, best = tile_search_sorted(
+            row_pk, row_pop, row_group, state.t_pk, state.t_pops,
+            state.t_slot, pending, guard_group=guard_g,
+        )
+    has_cand = best_sim > -1.5
+    best_l = best.long()
+
+    # ---- 3. individual merge evaluation ----
+    cand_ls = _cluster_ls_of(state, best_l, n_features)
+    cand_n = state.n[best_l]
+    cand_ref = state.ls_ref[best_l]
+    accept = merge_accept_batch(
+        criterion, threshold, cand_ls + row_ls, cand_n + row_n, cand_ls,
+        cand_n, row_n, tolerance=tolerance,
+    )
+    # Rows that repeatedly pass the individual screen but lose the commit
+    # prefix are demoted to the rejected path
+    accept = accept & pending & has_cand & (strikes < 2)
+
+    # ---- conflict resolution: serial prefix commits per candidate ----
+    akey = torch.where(accept, best, _BIG)
+    aorder, agrp, astart = _group_ids_by_key(akey)
+    a_ok = accept[aorder]
+    row_ls_a = row_ls[aorder]
+    row_n_a = row_n[aorder]
+    s_ls = torch.where(a_ok[:, None], row_ls_a, 0)
+    s_n = torch.where(a_ok, row_n_a, 0)
+    # Per-row index of its segment's first sorted position
+    seg_start = torch.cummax(torch.where(astart, row_idx, 0), dim=0).values.long()
+    cum_ls = _icumsum(s_ls)
+    cum_n = _icumsum(s_n)
+    excl_ls = cum_ls - s_ls
+    excl_n = cum_n - s_n
+    pre_ls = excl_ls - excl_ls[seg_start]  # sum of earlier rows in the segment
+    pre_n = excl_n - excl_n[seg_start]
+    cand_ls_s = cand_ls[aorder]
+    cand_n_s = cand_n[aorder]
+    acc_pref = (
+        merge_accept_batch(
+            criterion, threshold, cand_ls_s + pre_ls + s_ls,
+            cand_n_s + pre_n + s_n, cand_ls_s + pre_ls, cand_n_s + pre_n,
+            s_n, tolerance=tolerance,
+        )
+        & a_ok
+    )
+    del cum_ls, excl_ls, pre_ls
+
+    # ---- pass 2: skip failed rows and re-validate (serial semantics: a
+    # failed row adds no mass to later rows' tests); commit the longest
+    # prefix of surviving rows whose every cumulative merge holds ----
+    inc2 = acc_pref
+    s_ls2 = torch.where(inc2[:, None], row_ls_a, 0)
+    s_n2 = torch.where(inc2, row_n_a, 0)
+    excl_ls2 = _icumsum(s_ls2) - s_ls2
+    excl_n2 = _icumsum(s_n2) - s_n2
+    pre_ls2 = excl_ls2 - excl_ls2[seg_start]
+    pre_n2 = excl_n2 - excl_n2[seg_start]
+    del excl_ls2
+    acc2 = (
+        merge_accept_batch(
+            criterion, threshold, cand_ls_s + pre_ls2 + s_ls2,
+            cand_n_s + pre_n2 + s_n2, cand_ls_s + pre_ls2,
+            cand_n_s + pre_n2, s_n2, tolerance=tolerance,
+        )
+        & inc2
+    )
+    del pre_ls2, s_ls2
+    acc2_i = acc2.to(_I32)
+    inc2_i = inc2.to(_I32)
+    acc2_cum = _icumsum(acc2_i)
+    inc2_cum = _icumsum(inc2_i)
+    acc2_run = acc2_cum - (acc2_cum - acc2_i)[seg_start]
+    inc2_run = inc2_cum - (inc2_cum - inc2_i)[seg_start]
+    committed_sorted = acc2 & (acc2_run == inc2_run)
+
+    # ---- pool-capacity guard (merge side): a promotion (a singleton
+    # candidate's first merge) allocates a pool row; when the pool is full
+    # the allocating segment rolls back whole and its rows pend ----
+    p_cap = state.ls.shape[0]
+    cand_ref_s = cand_ref[aorder]
+    cmt_i = committed_sorted.to(_I32)
+    cmt_cum = _icumsum(cmt_i)
+    cmt_run = cmt_cum - (cmt_cum - cmt_i)[seg_start]
+    seg_any = committed_sorted & (cmt_run == 1)
+    promo_try = seg_any & (cand_ref_s < 0)
+    ref_promo_sorted = state.num_ls + _icumsum(promo_try.to(_I32)) - 1
+    promo_ok = ~promo_try | (ref_promo_sorted < p_cap - 1)
+    seg_ok = _segment_min(promo_ok.to(_I32), agrp, m)[agrp.long()].to(torch.bool)
+    committed_sorted = committed_sorted & seg_ok
+    seg_any = seg_any & seg_ok
+    # One writer per surviving segment: promotions allocate, adders add
+    promo_sorted = promo_try & seg_ok
+    adder_sorted = seg_any & (cand_ref_s >= 0)
+    n_promo = _isum(promo_sorted)
+    merge_commit = _scatter_perm(aorder, committed_sorted)
+
+    # ---- 4. leader election among rejected rows (per routed group) ----
+    rejected = pending & ~accept
+    if criterion == "never-merge":
+        leader = rejected
+        join = torch.zeros((m,), dtype=torch.bool, device=dev)
+        lead_of = row_idx
+    else:
+        if row_sims is not None:
+            # Step-constant sims: every use below is gated on both
+            # endpoints being rejected, where masked and unmasked agree
+            rsims = row_sims
+        else:
+            rcent = torch.where(rejected[:, None], row_cent, 0)
+            rpop = torch.where(rejected, row_pop, 0)
+            rsims = _tanimoto_gram(rcent, rpop)
+        same_group = row_group[:, None] == row_group[None, :]
+        lower = row_idx[None, :] < row_idx[:, None]  # [j, i]: i < j
+        sim_to_lower = torch.where(
+            lower & rejected[None, :] & same_group, rsims, _NEG
+        )
+        del same_group, lower
+        # Rows whose join failed last round self-promote
+        leads = rejected & (
+            force_lead | ~torch.any(sim_to_lower >= threshold, dim=1)
+        )
+        sim_to_leader = torch.where(leads[None, :], sim_to_lower, _NEG)
+        del sim_to_lower
+        lead_of = torch.argmax(sim_to_leader, dim=1).to(_I32)
+        best_lead_sim = sim_to_leader.amax(dim=1)
+        del sim_to_leader
+        join = rejected & ~leads & (best_lead_sim >= threshold)
+        leader = leads
+        lead_of = torch.where(leader, row_idx, lead_of)
+    lead_of_l = lead_of.long()
+
+    # Cohesion check of each leader's would-be cluster
+    jkey = torch.where(leader | join, lead_of, _BIG)
+    jorder, jgrp, _jstart = _group_ids_by_key(jkey)
+    jgrp_l = jgrp.long()
+    j_ok = (leader | join)[jorder]
+    j_ls = torch.where(j_ok[:, None], row_ls[jorder], 0)
+    j_n = torch.where(j_ok, row_n[jorder], 0)
+    gj_ls = _segment_sum(j_ls, jgrp, m)
+    gj_n = _segment_sum(j_n, jgrp, m)
+    del j_ls
+    gj_ok = merge_accept_batch(
+        criterion, threshold, gj_ls, gj_n.clamp_min(2),
+        torch.zeros_like(gj_ls), torch.ones_like(gj_n), gj_n,
+        tolerance=tolerance,
+    ) | (gj_n <= 1)
+    join_ok = _scatter_perm(jorder, gj_ok[jgrp_l])
+    join_commit = join & join_ok
+    # Followers of a non-cohesive would-be cluster become creators now
+    creator = leader | (join & ~join_ok)
+
+    # ---- pool-capacity guard (create side); runs before tile positions
+    # are ranked so that a dropped creator leaves no hole in its tile ----
+    gj_full_ls = _scatter_perm(jorder, gj_ls[jgrp_l])
+    gj_full_n = _scatter_perm(jorder, gj_n[jgrp_l])
+    del gj_ls
+    pool_created_ls = torch.where(join_ok[:, None], gj_full_ls, row_ls)
+    pool_created_n = torch.where(join_ok, gj_full_n, row_n)
+    create_pool_try = creator & (pool_created_n >= 2)
+    ref_create = state.num_ls + n_promo + _icumsum(create_pool_try.to(_I32)) - 1
+    create_ok = ~create_pool_try | (ref_create < p_cap - 1)
+    creator = creator & create_ok
+    join_commit = join_commit & create_ok[lead_of_l]
+
+    # ---- 5. tile positions for new clusters (per group, index order);
+    # creations into full tiles open fresh overflow groups, packed densely
+    # in chunks of `tile` per routed group ----
+    ckey = torch.where(creator, row_group, _BIG)
+    corder, cgrp, _cstart = _group_ids_by_key(ckey)
+    crank = _scatter_perm(corder, _segment_rank(cgrp, creator[corder]))
+    new_pos = state.g_count[row_group.long()] + crank
+    chunk = torch.div(new_pos, tile, rounding_mode="floor")
+    chunk_sorted = torch.where(creator[corder], chunk[corder], 0)
+    # segment_max fills EMPTY segments with int32-min: clamp to 0
+    seg_new = _segment_max(chunk_sorted, cgrp, m).clamp_min(0)
+    seg_base = _icumsum(seg_new) - seg_new
+    seg_of_row = _scatter_perm(corder, cgrp)
+    over_group = state.g_num + seg_base[seg_of_row.long()] + (chunk - 1)
+    fits = chunk == 0
+    # Rows whose overflow group would exceed capacity pend (a rank suffix
+    # per routed-group segment, so survivors' positions stay contiguous)
+    g_cap = state.g_ls.shape[0]
+    fits_g = fits | (over_group < g_cap - 1)
+    tgt_group = torch.where(fits, row_group, over_group)
+    tgt_pos = torch.where(fits, new_pos, torch.remainder(new_pos, tile))
+    create_commit = creator & fits_g
+    join_commit = join_commit & fits_g[lead_of_l]
+    # Pool refs of fits_g-killed multi-member creators stay consumed
+    create_pool = create_pool_try & create_ok & fits_g
+
+    lead_rank = _icumsum(create_commit.to(_I32)) - 1
+    new_slot = state.num + lead_rank
+    slot_of_row = torch.where(
+        merge_commit,
+        best,
+        torch.where(
+            create_commit,
+            new_slot,
+            torch.where(join_commit, new_slot[lead_of_l], -1),
+        ),
+    )
+    commit = merge_commit | create_commit | join_commit
+
+    # ---- 6. commit the flat cluster tables (in place) ----
+    num = state.num + _isum(create_commit)
+    g_num = torch.clamp_max(state.g_num + _isum(seg_new), g_cap - 1)
+    _drop_set_(state.group, new_slot, tgt_group, create_commit)
+    _drop_set_(state.pos, new_slot, tgt_pos, create_commit)
+    _drop_add_(
+        state.g_count, tgt_group, torch.ones_like(tgt_group), create_commit
+    )
+
+    # ---- 7. tile entries for CREATED clusters (merged clusters keep a
+    # slightly stale tile centroid until the step's refresh) ----
+    created_ls = torch.where((join_ok & fits)[:, None], gj_full_ls, row_ls)
+    created_n = torch.where(join_ok & fits, gj_full_n, row_n)
+    del gj_full_ls
+    c_cent = majority_centroid_from_sums(created_ls, created_n.clamp_min(1))
+    del created_ls
+    c_packed = pack_fingerprints_device(c_cent)
+    cell = tgt_group * tile + tgt_pos
+    _drop_set_(_flat2(state.t_pk), cell, c_packed, create_commit)
+    _drop_set_(_flat2(state.t_pops), cell, _isum(c_cent, -1), create_commit)
+    _drop_set_(_flat2(state.t_slot), cell, new_slot, create_commit)
+    del c_cent
+
+    # ---- 8. sparse linear-sum pool: promotions (old bits + this round's
+    # committed rows) and multi-member creations; merge updates are
+    # pre-aggregated per candidate segment (one writer row each) ----
+    agrp_l = agrp.long()
+    seg_add_ls = _segment_sum(
+        torch.where(committed_sorted[:, None], row_ls_a, 0), agrp, m
+    )[agrp_l]
+    num_ls = state.num_ls + n_promo + _isum(create_pool_try & create_ok)
+    _drop_set_(state.ls, ref_promo_sorted, cand_ls_s + seg_add_ls, promo_sorted)
+    _drop_add_(state.ls, cand_ref_s, seg_add_ls, adder_sorted)
+    _drop_set_(state.ls, ref_create, pool_created_ls, create_pool)
+    del seg_add_ls, pool_created_ls
+    best_s = best[aorder]
+    _drop_set_(state.ls_ref, best_s, ref_promo_sorted, promo_sorted)
+    _drop_set_(state.ls_ref, new_slot, ref_create, create_pool)
+
+    # Cluster counts, pre-aggregated the same way
+    seg_add_n = _segment_sum(
+        torch.where(committed_sorted, row_n_a, 0), agrp, m
+    )[agrp_l]
+    _drop_add_(state.n, best_s, seg_add_n, seg_any)
+    _drop_add_(state.n, new_slot, pool_created_n, create_commit)
+
+    assigned = torch.where(commit, slot_of_row, assigned)
+    pending = pending & ~commit
+    struck = pending & (
+        (accept & ~merge_commit)
+        | (join & ~join_commit)
+        | (leader & ~create_commit)
+    )
+    strikes = torch.where(pending, strikes + struck.to(_I32), 0)
+    return state._replace(num_ls=num_ls, num=num, g_num=g_num), pending, assigned, strikes
+
+
+def _batch_step_impl(
+    state: BatchState,
+    row_ls: torch.Tensor,  # (M, F) int32
+    row_n: torch.Tensor,  # (M,) int32 (0 rows are padding)
+    row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
+    row_pk: torch.Tensor,  # (M, F8) uint8 packed centroid
+    row_pop: torch.Tensor,  # (M,) int32
+    threshold: torch.Tensor,  # () f32
+    tolerance: torch.Tensor,  # () f32
+    *,
+    criterion: str,
+    block: int,
+    max_rounds: int,
+    narrow: int = 0,
+) -> tuple[BatchState, torch.Tensor, torch.Tensor]:
+    r"""Insert one batch of CF rows.
+
+    Returns (state, assigned slot per row, pending * 1000 + rounds);
+    assigned == -1 marks rows the host must retry after splitting oversized
+    groups.  Rounds run full-width while more than ``narrow`` rows are
+    pending, then as compacted rounds over the ``narrow`` lowest-index
+    pending rows (label-preserving, see ``_insert_round``); ``narrow=0``
+    disables the narrow phase.  Each round's loop condition is one scalar
+    read on the host.
+    """
+    m = row_ls.shape[0]
+    dev = row_ls.device
+    kw = dict(criterion=criterion)
+
+    # Step-constant work: the route, the all-pairs row sims and the
+    # search's sort plan depend only on the rows and the routing table,
+    # which no round changes
+    pending0 = row_n > 0
+    row_group = _route_groups(
+        row_cent, row_pop, state.g_cent, state.g_pops,
+        _host_int(state.g_num), pending0, block,
+    )
+    row_sims = (
+        None if criterion == "never-merge" else _tanimoto_gram(row_cent, row_pop)
+    )
+    guard_g = state.g_ls.shape[0] - 1
+    order, skey = sorted_search_plan(torch.where(pending0, row_group, guard_g))
+    search_plan = (row_pk[order], row_pop[order], skey, order)
+
+    pending = pending0
+    assigned = torch.full((m,), -1, dtype=_I32, device=dev)
+    strikes = torch.zeros((m,), dtype=_I32, device=dev)
+    rounds = 0
+    limit = narrow if 0 < narrow < m else 0
+    while rounds < max_rounds and _host_int(_isum(pending)) > limit:
+        state, pending, assigned, strikes = _insert_round(
+            state, pending, assigned, strikes, row_group,
+            row_ls, row_n, row_cent, row_pk, row_pop,
+            threshold, tolerance, row_sims=row_sims,
+            search_plan=search_plan, **kw,
+        )
+        rounds += 1
+    del row_sims, search_plan
+
+    if 0 < narrow < m:
+        mn = narrow
+        while rounds < max_rounds and bool(_host(pending.any())):
+            # Compact the pending rows to the front (stable: original
+            # order kept, which is all the round logic depends on)
+            sel = torch.sort((~pending).to(torch.uint8), stable=True).indices[:mn]
+            state, sub_pending, sub_assigned, sub_strikes = _insert_round(
+                state, pending[sel], torch.full((mn,), -1, dtype=_I32, device=dev),
+                strikes[sel], row_group[sel],
+                row_ls[sel], row_n[sel], row_cent[sel], row_pk[sel],
+                row_pop[sel], threshold, tolerance, **kw,
+            )
+            assigned[sel] = torch.where(sub_assigned >= 0, sub_assigned, assigned[sel])
+            pending = pending.clone()
+            pending[sel] = sub_pending
+            strikes[sel] = sub_strikes
+            rounds += 1
+
+    state = _refresh_touched(state, assigned, row_ls, row_n)
+    return state, assigned, _isum(pending) * 1000 + rounds
+
+
+def _refresh_touched(
+    state: BatchState,
+    assigned: torch.Tensor,
+    row_ls: torch.Tensor,
+    row_n: torch.Tensor,
+) -> BatchState:
+    r"""Fold committed rows into their group CFs and refresh the tile and
+    routing centroids of the clusters and groups this step touched (once
+    per step).  Updates the tables in place."""
+    guard_c = state.n.shape[0] - 1
+    n_features = state.g_ls.shape[1]
+
+    ok = assigned >= 0
+    slots = torch.where(ok, assigned, guard_c).long()  # guard ok for gathers
+    groups = state.group[slots]
+
+    # Group CF accumulation, pre-aggregated per group (one writer each)
+    m = assigned.shape[0]
+    gkey = torch.where(ok, groups, _BIG)
+    gorder, ggrp, gstart = _group_ids_by_key(gkey)
+    ggrp_l = ggrp.long()
+    ok_sorted = ok[gorder]
+    grp_sum_ls = _segment_sum(
+        torch.where(ok_sorted[:, None], row_ls[gorder], 0), ggrp, m
+    )[ggrp_l]
+    grp_sum_n = _segment_sum(
+        torch.where(ok_sorted, row_n[gorder], 0), ggrp, m
+    )[ggrp_l]
+    writer = gstart & ok_sorted
+    g_idx = groups[gorder]
+    _drop_add_(state.g_ls, g_idx, grp_sum_ls, writer)
+    _drop_add_(state.g_n, g_idx, grp_sum_n, writer)
+    del grp_sum_ls
+
+    # Tile entries: one writer per distinct touched cluster
+    skey = torch.where(ok, slots.to(_I32), _BIG)
+    sorder, _sgrp, sstart = _group_ids_by_key(skey)
+    writer_c = sstart & ok[sorder]
+    slots_s = slots[sorder]
+    t_ls = _cluster_ls_of(state, slots_s, n_features)
+    t_n = state.n[slots_s]
+    cents = majority_centroid_from_sums(t_ls, t_n.clamp_min(1))
+    del t_ls
+    cell = state.group[slots_s] * state.t_pk.shape[1] + state.pos[slots_s]
+    _drop_set_(_flat2(state.t_pk), cell, pack_fingerprints_device(cents), writer_c)
+    _drop_set_(_flat2(state.t_pops), cell, _isum(cents, -1), writer_c)
+    del cents
+
+    # Routing centroids: one writer per distinct touched group (g_ls is
+    # already updated above)
+    groups_s = torch.where(ok_sorted, g_idx, 0).long()
+    g_cents = majority_centroid_from_sums(
+        state.g_ls[groups_s], state.g_n[groups_s].clamp_min(1)
+    )
+    _drop_set_(state.g_cent, g_idx, g_cents.to(_CENT_DT), writer)
+    _drop_set_(state.g_pops, g_idx, _isum(g_cents, -1), writer)
+    return state
+
+
+def _split_topk_impl(
+    state: BatchState, *, k: int, fanout: int
+) -> tuple[BatchState, torch.Tensor]:
+    r"""Select the K most-populated groups and split the oversized ones.
+
+    Returns (state, number of oversized groups remaining).  ``lax.top_k``
+    takes lower indices first on ties; a stable descending sort does too.
+    """
+    g_cap = state.g_count.shape[0]
+    live = torch.arange(g_cap, device=state.g_count.device) < state.g_num
+    counts = torch.where(live, state.g_count, 0)
+    vals, gs = torch.sort(counts, descending=True, stable=True)
+    vals, gs = vals[:k], gs[:k].to(_I32)
+    active = vals > fanout
+    n_over = _isum(counts > fanout)
+    state = _split_groups_device_impl(state, gs, active)
+    return state, n_over - _isum(active)
+
+
+def _split_groups_device_impl(
+    state: BatchState,
+    gs: torch.Tensor,  # (K,) int32 group ids to split
+    active: torch.Tensor,  # (K,) bool (False = padding, no-op)
+) -> BatchState:
+    r"""Split K oversized groups (reference node-split semantics with a
+    balanced partition): seeds are the most-dissimilar pair of member
+    centroids (centroid -> fp1 -> fp2); members are ranked by
+    (sim-to-fp1 - sim-to-fp2) and the top half moves to the new group.
+
+    Everything is read from the state before any table is written; the
+    writes are in place.
+    """
+    k = gs.shape[0]
+    dev = gs.device
+    tile = state.t_pk.shape[1]
+    f8 = state.t_pk.shape[2]
+    n_features = state.g_ls.shape[1]
+    gs_l = gs.long()
+    new_gs = state.g_num + _icumsum(active.to(_I32)) - 1
+
+    t_pk = state.t_pk[gs_l]  # (K, tile, F8)
+    t_pops = state.t_pops[gs_l]  # (K, tile)
+    t_slot = state.t_slot[gs_l]  # (K, tile)
+    occupied = t_slot >= 0
+
+    # Seed centroid: exact group-CF majority vote, packed
+    g_ls = state.g_ls[gs_l]
+    g_n = state.g_n[gs_l]
+    seed_bits = majority_centroid_from_sums(g_ls, g_n.clamp_min(1))
+    seed_pk = pack_fingerprints_device(seed_bits)  # (K, F8)
+    seed_pop = _isum(seed_bits, -1)
+
+    def packed_sims(vec_pk, vec_pop):
+        # Tanimoto of each tile cell vs a per-row packed vector
+        inter = _popcount_u8(t_pk & vec_pk[:, None, :]).sum(dim=-1, dtype=_I32)
+        union = t_pops + vec_pop[:, None] - inter
+        sims = inter.to(torch.float32) / union.clamp_min(1).to(torch.float32)
+        return torch.where(occupied, sims, 2.0)  # empty cells never argmin
+
+    rows = torch.arange(k, device=dev)
+    sims_seed = packed_sims(seed_pk, seed_pop)
+    i1 = torch.argmin(sims_seed, dim=1)
+    fp1 = t_pk[rows, i1]
+    sims1 = packed_sims(fp1, t_pops[rows, i1])
+    i2 = torch.argmin(sims1, dim=1)
+    fp2 = t_pk[rows, i2]
+    sims2 = packed_sims(fp2, t_pops[rows, i2])
+
+    inf = float("inf")
+    margin = sims1 - sims2
+    margin = torch.where(occupied, margin, -inf)  # empty cells stay put
+    col = torch.arange(tile, device=dev)[None, :].expand(k, tile)
+    margin = torch.where(col == i1[:, None], inf, margin)
+    margin = torch.where(col == i2[:, None], -inf, margin)
+    # Balanced partition: top half (by margin, stable) moves to the new group
+    order = torch.sort(-margin, dim=1, stable=True).indices  # sorted pos -> cell
+    n_occ = _isum(occupied, 1)
+    half = torch.div(n_occ, 2, rounding_mode="floor")
+    pos_in_sort = torch.empty_like(order).scatter_(1, order, col.contiguous())
+    to_new = occupied & (pos_in_sort < half[:, None])
+
+    # Dense new positions within each half (stable by original cell order)
+    def dense_pos(mask):
+        mi = mask.to(_I32)
+        return _icumsum(mi, 1) - mi
+
+    pos_moved = dense_pos(to_new & occupied)
+    pos_kept = dense_pos(~to_new & occupied)
+    member_pos = torch.where(to_new, pos_moved, pos_kept)
+
+    # Re-pack tiles: scatter each occupied cell into (half, new position);
+    # empty source cells land in a trash column (tile) that is cut off
+    half_idx = to_new.long()
+    dst_cell = torch.where(occupied, member_pos.long(), tile)
+    dst = ((rows[:, None] * 2 + half_idx) * (tile + 1) + dst_cell).reshape(-1)
+    new_t_pk = torch.zeros((k * 2 * (tile + 1), f8), dtype=torch.uint8, device=dev)
+    new_t_pk[dst] = t_pk.reshape(k * tile, f8)
+    new_t_pops = torch.zeros((k * 2 * (tile + 1),), dtype=_I32, device=dev)
+    new_t_pops[dst] = t_pops.reshape(-1)
+    new_t_slot = torch.full((k * 2 * (tile + 1),), -1, dtype=_I32, device=dev)
+    new_t_slot[dst] = t_slot.reshape(-1)
+    new_t_pk = new_t_pk.view(k, 2, tile + 1, f8)[:, :, :tile].reshape(2 * k, tile, f8)
+    new_t_pops = new_t_pops.view(k, 2, tile + 1)[:, :, :tile].reshape(2 * k, tile)
+    new_t_slot = new_t_slot.view(k, 2, tile + 1)[:, :, :tile].reshape(2 * k, tile)
+
+    # Group CFs of the two halves (read before any cluster table changes)
+    w_moved = (to_new & occupied).to(_I32)
+    slot_flat = t_slot.clamp_min(0).reshape(-1)
+    cluster_ls = _cluster_ls_of(state, slot_flat, n_features).reshape(k, tile, -1)
+    cluster_n = state.n[slot_flat.long()].reshape(k, tile)
+    moved_ls = _isum(cluster_ls * w_moved[:, :, None], 1)
+    del cluster_ls
+    moved_n = _isum(cluster_n * w_moved, 1)
+    kept_ls = g_ls - moved_ls
+    kept_n = g_n - moved_n
+
+    # Cluster -> (group, pos) updates for the live members
+    live = (occupied & active[:, None]).reshape(-1)
+    member_grp = torch.where(to_new, new_gs[:, None], gs[:, None]).reshape(-1)
+    _drop_set_(state.group, t_slot.reshape(-1), member_grp, live)
+    _drop_set_(state.pos, t_slot.reshape(-1), member_pos.reshape(-1), live)
+
+    gi = torch.stack([gs, new_gs], dim=1).reshape(-1)
+    keep = active[:, None].expand(k, 2).reshape(-1)
+    pair_ls = torch.stack([kept_ls, moved_ls], dim=1).reshape(2 * k, -1)
+    pair_n = torch.stack([kept_n, moved_n], dim=1).reshape(2 * k)
+    pair_cent = majority_centroid_from_sums(pair_ls, pair_n.clamp_min(1))
+    moved_cnt = _isum(w_moved, 1)
+    pair_counts = torch.stack([n_occ - moved_cnt, moved_cnt], dim=1).reshape(2 * k)
+
+    _drop_set_(state.t_pk, gi, new_t_pk, keep)
+    _drop_set_(state.t_pops, gi, new_t_pops, keep)
+    _drop_set_(state.t_slot, gi, new_t_slot, keep)
+    _drop_set_(state.g_ls, gi, pair_ls, keep)
+    _drop_set_(state.g_n, gi, pair_n, keep)
+    _drop_set_(state.g_cent, gi, pair_cent.to(_CENT_DT), keep)
+    _drop_set_(state.g_pops, gi, _isum(pair_cent, -1), keep)
+    _drop_set_(state.g_count, gi, pair_counts, keep)
+    return state._replace(g_num=state.g_num + _isum(active))
+
+
+def _slice_prep_fp_rows_impl(
+    dev_fps: torch.Tensor, start: int, n_valid: int, m: int, n_features: int
+):
+    r"""Slice ``m`` rows at ``start`` (clamped into range, like
+    ``lax.dynamic_slice``), unpack, and build the CF rows; rows at rank
+    ``>= n_valid`` are padding."""
+    start = min(max(start, 0), dev_fps.shape[0] - m)
+    packed = dev_fps[start : start + m]
+    valid = torch.arange(m, device=dev_fps.device) < n_valid
+    bits = unpack_fingerprints_device(packed, n_features)
+    row_ls = torch.where(valid[:, None], bits.to(_I32), 0)
+    row_n = valid.to(_I32)
+    row_cent = row_ls.to(_CENT_DT)
+    row_pk = torch.where(valid[:, None], packed, 0)
+    row_pop = _isum(row_ls, -1)
+    return row_ls, row_n, row_cent, row_pk, row_pop
+
+
+def _stage_tail(dev_fps: torch.Tensor, n_valid: int, window: int) -> torch.Tensor:
+    r"""Stage the trailing ``n_valid`` rows of a device-resident input into
+    a fresh ``window``-row buffer (rows first, zero-padded), so that the
+    final partial window's batch slices stay in bounds."""
+    chunk = dev_fps[dev_fps.shape[0] - window :]
+    rolled = torch.roll(chunk, n_valid - window, dims=0)
+    rank = torch.arange(window, device=dev_fps.device)
+    return torch.where((rank < n_valid)[:, None], rolled, 0)
+
+
+def _prep_fp_rows(packed: torch.Tensor, valid: torch.Tensor, n_features: int):
+    r"""CF-row prep from packed fingerprints (n = 1 rows)."""
+    bits = unpack_fingerprints_device(packed, n_features)
+    row_ls = bits.to(_I32)
+    row_n = valid.to(_I32)
+    row_cent = bits.to(_CENT_DT)
+    row_pop = _isum(row_ls, -1)
+    return row_ls, row_n, row_cent, packed, row_pop
+
+
+def _scan_fit_packed_impl(
+    state: BatchState,
+    dev_fps: torch.Tensor,  # (R, F8) uint8 device-resident, R >= start+k*m
+    start: int,  # row offset of the first batch
+    n_valid: int,  # valid rows from ``start`` (rest = padding)
+    threshold: torch.Tensor,
+    tolerance: torch.Tensor,
+    *,
+    k: int,
+    m: int,
+    n_features: int,
+    criterion: str,
+    block: int,
+    max_rounds: int,
+    narrow: int,
+    split_k: int,
+    fanout: int,
+) -> tuple[BatchState, torch.Tensor, torch.Tensor]:
+    r"""Insert ``k`` consecutive batches of ``m`` rows (one scan window):
+    per batch, slice + unpack -> batch step -> split pass when a group is
+    near full (or, at the window's last batch, over ``fanout``).
+
+    Returns (state, assigned (k, m), encs (k,)).  All-padding batches skip
+    their step, which would commit nothing.
+    """
+    dev = dev_fps.device
+    assigned = torch.full((k, m), -1, dtype=_I32, device=dev)
+    encs = torch.zeros((k,), dtype=_I32, device=dev)
+    tile_cap = state.t_pk.shape[1]
+    for i in range(k):
+        nv = min(max(n_valid - i * m, 0), m)
+        if nv > 0:
+            rows = _slice_prep_fp_rows_impl(dev_fps, start + i * m, nv, m, n_features)
+            state, assigned[i], encs[i] = _batch_step_impl(
+                state, *rows, threshold, tolerance, criterion=criterion,
+                block=block, max_rounds=max_rounds, narrow=narrow,
+            )
+        # Per-batch split pass whenever a group nears its tile capacity, and
+        # at the window's end whenever one exceeds fanout (rebalancing keeps
+        # hot groups' candidate tiles whole)
+        g_cap = state.g_count.shape[0]
+        live = torch.arange(g_cap, device=dev) < state.g_num
+        top = _host_int(torch.where(live, state.g_count, 0).amax())
+        if top > tile_cap - 16 or (i == k - 1 and top > fanout):
+            state = _split_topk_impl(state, k=split_k, fanout=fanout)[0]
+    return state, assigned, encs
+
+
+class BatchTree:
+    r"""Host driver for the batched engine (data plane on the device,
+    topology control plane on the host).
+
+    ``fanout`` bounds the clusters per group (split trigger); ``tile`` is the
+    static per-group tile capacity (must exceed ``fanout`` by enough headroom
+    for in-batch creations).  ``device`` is where the tables live: CUDA
+    runs the hand-written tile-search kernel, the CPU its plain version.
+    """
+
+    def __init__(
+        self,
+        n_features: int,
+        *,
+        threshold: float = 0.65,
+        merge_criterion: str = "diameter",
+        tolerance: float = 0.05,
+        batch_size: int = 1024,
+        fanout: int = 192,
+        tile: int = 256,
+        initial_capacity: int = 8192,
+        ls_capacity: int | None = None,
+        g_capacity: int | None = None,
+        route_block: int = 1024,
+        max_rounds: int = 24,
+        pipeline_depth: int = 3,
+        stage_windows: int = 8,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        if fanout >= tile:
+            raise ValueError("fanout must be < tile (headroom for creations)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BatchTree(device='cuda') needs a CUDA device and none is "
+                "available; pass device='cpu' to run the plain PyTorch path"
+            )
+        self.n_features = n_features
+        self.n_bytes = (n_features + 7) // 8
+        self.threshold = threshold
+        self.merge_criterion = merge_criterion
+        self.tolerance = tolerance
+        self.batch_size = batch_size
+        self.fanout = fanout
+        self.tile = tile
+        self.route_block = route_block
+        self.max_rounds = max_rounds
+        self.capacity = _next_pow2(max(initial_capacity, 2 * batch_size + 1))
+        # Sparse linear-sum pool: only multi-member clusters hold a row; the
+        # default is capped and the pool grows on demand like the others
+        self.ls_capacity = _next_pow2(
+            ls_capacity
+            if ls_capacity is not None
+            else max(min(self.capacity // 4, 1 << 17), 2 * batch_size + 1)
+        )
+        # Host-driver constants as the JAX engine has them (tuned for its
+        # TPU; pipeline_depth decides when pending rows are retried, so
+        # changing it changes labels)
+        self.split_k = 64  # oversized groups split per pass
+        self.scan_batches = 16  # batches per scan window
+        # Group headroom: ~capacity/fanout with ~1.3x slack for split halves
+        # and overflow chunks, plus one scan window's split/creation headroom
+        self.g_capacity = _next_pow2(
+            g_capacity
+            if g_capacity is not None
+            else max(
+                256,
+                self.capacity * 13 // (10 * max(fanout, 1))
+                + self._scan_g_headroom(),
+            )
+        )
+        self.state = _init_state(
+            self.capacity, self.g_capacity, tile, n_features,
+            self.ls_capacity, self.device,
+        )
+        # Host-side upper bounds on the device counters (_ensure_capacity)
+        self._num_upper = 0
+        self._g_upper = 1
+        self._ls_upper = 0
+        self.split_interval = 8
+        # Scan windows kept queued before the oldest boundary is settled
+        self.pipeline_depth = max(1, pipeline_depth)
+        # Host inputs stage in chunks of `stage_windows` scan windows
+        self.stage_windows = max(1, stage_windows)
+        self._boundary_queue: list[dict] = []
+        # Per-inserted-row slot assignments + mol bookkeeping (host side)
+        self._row_slots: list[tuple[tp.Any, int]] = []
+        self._row_mols: list[np.ndarray] = []
+
+    def _scalars(self) -> tuple[torch.Tensor, torch.Tensor]:
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return torch.tensor(self.threshold, **f32), torch.tensor(self.tolerance, **f32)
+
+    @property
+    def num_clusters(self) -> int:
+        num = _host_int(self.state.num)
+        self._num_upper = num
+        return num
+
+    @property
+    def num_groups(self) -> int:
+        g_num = _host_int(self.state.g_num)
+        self._g_upper = g_num
+        return g_num
+
+    def _scan_g_headroom(self) -> int:
+        r"""Free group slots demanded before a scan window runs: 2x the
+        window's split-pass creations plus an estimate of overflow-chunk
+        creations (~4 per tile of rows)."""
+        k, m = self.scan_batches, self.batch_size
+        return 2 * k * (self.split_k + 4 * (m // self.tile + 4))
+
+    def _ensure_capacity(
+        self,
+        incoming: int,
+        g_incoming: int | None = None,
+        p_incoming: int | None = None,
+    ) -> None:
+        r"""Grow tables if needed, using host-side upper bounds on the
+        device counters; exact counts are read only near the capacity edge.
+        Underestimates are safe: the step's in-table guards leave
+        unplaceable rows pending and the flush boundary grows + retries."""
+        if g_incoming is None:
+            g_incoming = incoming
+        if p_incoming is None:
+            p_incoming = incoming
+        # +1: the top slot of each table is a scatter guard and stays free
+        if self._num_upper + incoming + 1 > self.capacity:
+            self._num_upper = _host_int(self.state.num)
+        if self._g_upper + g_incoming + 1 > self.g_capacity:
+            self._g_upper = _host_int(self.state.g_num)
+        if self._ls_upper + p_incoming + 1 > self.ls_capacity:
+            self._ls_upper = _host_int(self.state.num_ls)
+        need_c = self._num_upper + incoming + 1
+        need_g = self._g_upper + g_incoming + 1
+        need_p = self._ls_upper + p_incoming + 1
+        new_c, new_g = self.capacity, self.g_capacity
+        new_p = self.ls_capacity
+        while new_c < need_c:
+            new_c *= 2
+        while new_g < need_g:
+            new_g *= 2
+        while new_p < need_p:
+            new_p *= 2
+        if (new_c, new_g, new_p) != (
+            self.capacity, self.g_capacity, self.ls_capacity
+        ):
+            self.state = _grow_state(self.state, new_c, new_g, new_p)
+            self.capacity, self.g_capacity = new_c, new_g
+            self.ls_capacity = new_p
+
+    # -- insertion -----------------------------------------------------------
+
+    def fit_packed(
+        self,
+        packed_fps: np.ndarray | torch.Tensor,
+        mol_indices: tp.Sequence[int],
+    ) -> None:
+        r"""Insert packed fingerprints in scan windows of ``scan_batches``
+        batches.
+
+        A torch tensor is used where it lies (moved to ``device`` first if
+        it is elsewhere) and sliced in place; a host array is uploaded in
+        chunks of ``stage_windows`` windows.  Both give the same batches,
+        hence the same labels.
+        """
+        num = len(packed_fps)
+        if num and packed_fps.shape[-1] != self.n_bytes:
+            raise ValueError(
+                f"packed rows have {packed_fps.shape[-1]} bytes, expected "
+                f"{self.n_bytes} for {self.n_features} features (already-"
+                "packed input passed through packbits again is the usual "
+                "cause; make_fake_fingerprints returns PACKED rows)"
+            )
+        mol_arr = np.fromiter(mol_indices, dtype=np.int64, count=num)
+        m = self.batch_size
+        k = self.scan_batches
+        window = k * m
+        on_device = isinstance(packed_fps, torch.Tensor)
+        if on_device:
+            packed_fps = packed_fps.to(self.device, torch.uint8)
+            if num < window:
+                # Small device input: pad once so the single window's
+                # slices stay in bounds
+                packed_fps = _pad_rows(packed_fps, window)
+        elif not isinstance(packed_fps, np.ndarray):
+            packed_fps = np.asarray(packed_fps)
+
+        # A device-resident input is never padded in place; a final partial
+        # window stages its rows into a window-sized buffer
+        tail_buf = None
+        if on_device and num > window and num % window:
+            tail_buf = _stage_tail(packed_fps, num % window, window)
+
+        # Chunked host staging: one upload per `stage_windows` windows; a
+        # single-window input keeps the window-sized buffer
+        n_windows = -(-num // window) if num else 1
+        chunk_rows = (1 if n_windows <= 1 else self.stage_windows) * window
+
+        def upload_chunk(cstart: int) -> torch.Tensor:
+            stop = min(cstart + chunk_rows, num)
+            chunk = packed_fps[cstart:stop]
+            if stop - cstart < chunk_rows:
+                chunk = np.pad(chunk, ((0, chunk_rows - (stop - cstart)), (0, 0)))
+            return torch.from_numpy(np.ascontiguousarray(chunk, np.uint8)).to(self.device)
+
+        cur_chunk = None
+        for start in range(0, num, window):
+            stop = min(start + window, num)
+            n_valid = stop - start
+            if on_device:
+                if tail_buf is not None and n_valid < window:
+                    dev_buf, dev_start = tail_buf, 0
+                else:
+                    dev_buf, dev_start = packed_fps, start
+            else:
+                coff = start % chunk_rows
+                if coff == 0:
+                    cur_chunk = upload_chunk(start)
+                dev_buf, dev_start = cur_chunk, coff
+            self._submit_scan(dev_buf, dev_start, n_valid, mol_arr[start:stop])
+        self.flush()
+
+    def _submit_scan(
+        self,
+        dev_fps: torch.Tensor,
+        start_row: int,
+        n_valid: int,
+        mols: np.ndarray,
+    ) -> None:
+        r"""Run one k-batch scan window and queue its flush boundary."""
+        m, k = self.batch_size, self.scan_batches
+        # p_incoming=0: pool allocations are guarded in-step (overflow rows
+        # pend and the flush grows + retries)
+        self._ensure_capacity(
+            k * m, g_incoming=self._scan_g_headroom(), p_incoming=0
+        )
+        thr, tol = self._scalars()
+        self.state, assigned, encs = _scan_fit_packed_impl(
+            self.state, dev_fps, start_row, n_valid, thr, tol,
+            k=k, m=m, n_features=self.n_features,
+            criterion=self.merge_criterion, block=self.route_block,
+            max_rounds=self.max_rounds, narrow=m // 4,
+            split_k=self.split_k, fanout=self.fanout,
+        )
+        self._num_upper += n_valid
+        self._g_upper += k * self.split_k + max(
+            16, 4 * (n_valid // self.tile + 1)
+        )
+        self._row_slots.append((assigned.reshape(-1), n_valid))
+        self._row_mols.append(mols)
+        self._boundary_queue.append(
+            {
+                "slot_idx": len(self._row_slots) - 1,
+                "dev_fps": dev_fps,
+                "start": start_row,
+                "n_valid": n_valid,
+                # The window's encs plus the table counters as of this
+                # window, read when the boundary is settled
+                "sync": torch.cat(
+                    [
+                        encs,
+                        torch.stack(
+                            [self.state.num, self.state.g_num, self.state.num_ls]
+                        ),
+                    ]
+                ),
+            }
+        )
+        # Keep up to `pipeline_depth` windows queued before settling the
+        # oldest one's retries (retries run against the then-current state)
+        while len(self._boundary_queue) > self.pipeline_depth:
+            self._process_oldest_boundary()
+
+    def insert_fps(
+        self, unpacked_fps: np.ndarray, mol_indices: tp.Sequence[int]
+    ) -> None:
+        r"""Insert unpacked 0/1 fingerprints (one CF row of n=1 each)."""
+        self.fit_packed(
+            np.packbits(np.asarray(unpacked_fps, dtype=np.uint8), axis=-1),
+            mol_indices,
+        )
+
+    def flush(self) -> None:
+        r"""Settle every queued boundary, then a final split pass."""
+        while self._boundary_queue:
+            self._process_oldest_boundary()
+        self._split_oversized_groups()
+
+    def _process_oldest_boundary(self) -> None:
+        r"""Pop and settle the OLDEST queued boundary: refresh the host's
+        counter bounds from its sync payload and retry its pending rows."""
+        q = self._boundary_queue.pop(0)
+        k = self.scan_batches
+        flat = _host(q["sync"])
+        pending = flat[:-3] // 1000
+        # True table counters as of this window, plus the worst-case
+        # contributions of the newer windows already run
+        extra_rows = sum(q2["n_valid"] for q2 in self._boundary_queue)
+        extra_g = sum(
+            k * self.split_k + max(16, 4 * (q2["n_valid"] // self.tile + 1))
+            for q2 in self._boundary_queue
+        )
+        self._num_upper = int(flat[-3]) + extra_rows
+        self._g_upper = int(flat[-2]) + extra_g
+        # Pool bound: queued windows are not charged per row (the in-step
+        # pool guard pends rows on exhaustion); charge a 2*m margin each
+        self._ls_upper = int(flat[-1]) + 2 * self.batch_size * len(
+            self._boundary_queue
+        )
+        # Proactive pool headroom while the counters are fresh
+        self._ensure_capacity(0, g_incoming=0, p_incoming=2 * self.batch_size)
+        if (pending > 0).any():
+            self._retry_scan(q, pending)
+            self._split_oversized_groups()
+
+    def _retry_scan(self, q: dict, pending_per_batch: np.ndarray) -> None:
+        r"""Drain a scan window some of whose batches exhausted max_rounds
+        (rare): split, rebuild each pending batch's rows from the staged
+        fps, mask the already-assigned rows and re-step until done."""
+        m, k = self.batch_size, self.scan_batches
+        assigned_dev, n_valid = self._row_slots[q["slot_idx"]]
+        final = np.array(_host(assigned_dev))
+        valid = np.zeros(k * m, bool)
+        valid[:n_valid] = True
+        thr, tol = self._scalars()
+        for i in range(k):
+            if pending_per_batch[i] <= 0:
+                continue
+            seg = slice(i * m, (i + 1) * m)
+            seg_final = final[seg]
+            seg_valid = valid[seg]
+            for _attempt in range(64):
+                missing = (seg_final == -1) & seg_valid
+                if not missing.any():
+                    break
+                self._split_oversized_groups(drain=True)
+                row_ls, row_n, row_cent, row_pk, row_pop = _slice_prep_fp_rows_impl(
+                    q["dev_fps"], q["start"] + i * m,
+                    max(0, min(m, q["n_valid"] - i * m)), m, self.n_features,
+                )
+                row_n = torch.where(
+                    torch.from_numpy(missing).to(self.device), row_n, 0
+                )
+                self._ensure_capacity(m)
+                self.state, assigned, _enc = _batch_step_impl(
+                    self.state, row_ls, row_n, row_cent, row_pk, row_pop,
+                    thr, tol, criterion=self.merge_criterion,
+                    block=self.route_block, max_rounds=self.max_rounds,
+                    narrow=m // 4,
+                )
+                n_miss = int(missing.sum())
+                self._num_upper += n_miss
+                self._g_upper += n_miss
+                self._ls_upper += n_miss
+                seg_final[missing] = _host(assigned)[missing]
+            else:
+                raise RuntimeError("batch engine failed to drain a window")
+            final[seg] = seg_final
+        self._row_slots[q["slot_idx"]] = (final, n_valid)
+
+    # -- host control plane: group splits ------------------------------------
+
+    def _split_oversized_groups(self, drain: bool = False) -> None:
+        r"""Split groups whose cluster count exceeds ``fanout``, ``split_k``
+        per pass; ``drain`` repeats until none is oversized."""
+        k = self.split_k
+        for _ in range(64):
+            self._ensure_capacity(k)
+            self.state, n_left = _split_topk_impl(
+                self.state, k=k, fanout=self.fanout
+            )
+            self._g_upper += k
+            if not drain or _host_int(n_left) <= 0:
+                return
+
+    # -- extraction ----------------------------------------------------------
+
+    def cluster_sizes(self) -> np.ndarray:
+        self.flush()
+        return _host(self.state.n)[: self.num_clusters]
+
+    def _materialize_slots(self) -> None:
+        r"""Pull the device-side assignment vectors in one transfer."""
+        device_idx = [
+            i for i, (s, _c) in enumerate(self._row_slots)
+            if isinstance(s, torch.Tensor)
+        ]
+        if device_idx:
+            flat = _host(torch.cat([self._row_slots[i][0] for i in device_idx]))
+            off = 0
+            for i in device_idx:
+                s, count = self._row_slots[i]
+                self._row_slots[i] = (flat[off : off + s.shape[0]], count)
+                off += s.shape[0]
+        self._row_slots = [(s[:c], c) for s, c in self._row_slots]
+
+    def _flat_assignments(self) -> tuple[np.ndarray, np.ndarray]:
+        r"""(mol ids, cluster slot per mol) over every inserted row, in
+        insertion order."""
+        self.flush()
+        self._materialize_slots()
+        if not self._row_slots:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        return (
+            np.concatenate(self._row_mols),
+            np.concatenate([s for s, _c in self._row_slots]).astype(np.int64),
+        )
+
+    def assignments(self) -> np.ndarray:
+        r"""Cluster slot per molecule id, as one int array (0-based slots)."""
+        mols, slots = self._flat_assignments()
+        out = np.full(int(mols.max()) + 1 if len(mols) else 0, -1, np.int64)
+        out[mols] = slots
+        return out
+
+    def cluster_mols(self) -> list[list[int]]:
+        r"""Molecule ids per cluster slot (slot order, not size order)."""
+        ncl = self.num_clusters
+        mols, slots = self._flat_assignments()
+        if not len(mols):
+            return [[] for _ in range(ncl)]
+        order = np.argsort(slots, kind="stable")  # keeps insertion order
+        mols_sorted = mols[order]
+        slots_sorted = slots[order]
+        bounds = np.searchsorted(
+            slots_sorted, np.arange(ncl + 1), side="left"
+        ).tolist()
+        flat = mols_sorted.tolist()
+        return [flat[bounds[i] : bounds[i + 1]] for i in range(ncl)]
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
