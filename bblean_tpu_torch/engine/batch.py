@@ -1,6 +1,8 @@
 r"""Level-synchronous batched BitBirch engine on PyTorch (CPU or CUDA).
 
-Port of ``bblean_tpu/engine/batch.py``'s fit path.  The CF-tree is flattened
+Port of ``bblean_tpu/engine/batch.py``: the fit path, buffer mode
+(pre-aggregated CF rows), refinement, reclustering, extraction and the
+nearest-cluster probe (``predict_packed``).  The CF-tree is flattened
 to depth 2 and stored as flat device tables (see :class:`BatchState`):
 
 - **groups**: a routing table of group majority centroids ``(G, F) int8``
@@ -8,7 +10,7 @@ to depth 2 and stored as flat device tables (see :class:`BatchState`):
 - **clusters**: a flat count table plus a sparse linear-sum pool (only
   multi-member clusters own an ``(F,) int32`` pool row) and per-group
   packed-centroid tiles ``(G, Fc, F/8) uint8``, which the in-group search
-  scores with AND + popcount (the CUDA kernel of
+  scores with AND + popcount (the CUDA kernels of
   ``bblean_tpu_torch/ops/tile_search.py`` on the card).
 
 Each batch step routes every row to a group once, then runs insert rounds:
@@ -36,14 +38,26 @@ only where a cluster's sums pass 2^24 (tests hold the rest to JAX exactly):
   host keeps free as a guard (``_ensure_capacity``), and write back the
   guard's own value (``_drop_set_``) or add zero (``_drop_add_``).  This
   needs no device-to-host sync.
-- The in-group search is always the sorted search of
-  ``ops/tile_search.py``: its CUDA kernel on the card, its plain version on
-  the CPU.  The TPU engine kept its Pallas search opt-in.
+- A split pass never opens a group past the group table's guard slot; the
+  split waits for the host to grow the table.  The JAX engine opens it,
+  drops its table writes and reads clamped rows after; that happens only
+  when the scan window's group headroom is disabled, as
+  ``tests/test_pool_telemetry.py`` does, and there the two engines' labels
+  part (``tests/test_torch_pool_telemetry.py`` shows JAX's ``g_num`` passing
+  its table and clusters left outside their tiles).
+- Which search runs where (``ops/tile_search.py``; on the card a CUDA
+  kernel, on the CPU the one plain version): the wide rounds of a step run
+  the sorted search on the step's plan; the narrow retry rounds run the
+  per-row search, as the JAX engine runs ``_search_tiles`` there; predict
+  runs the sorted search where JAX would take its sorted Pallas search
+  (``m % 64 == 0``, ``F8 % 128 == 0``, ``Fc % 128 == 0``) and the per-row
+  search elsewhere.  The TPU engine kept its Pallas searches opt-in.
 """
 
 from __future__ import annotations
 
 import typing as tp
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -54,10 +68,12 @@ from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
 )
+from bblean_tpu_torch.ops import tile_search
 from bblean_tpu_torch.ops.tile_search import (
     _popcount_u8,
     sorted_search_plan,
     tile_search_planned,
+    tile_search_rows,
     tile_search_sorted,
 )
 
@@ -400,8 +416,8 @@ def _insert_round(
     narrow retry rounds label-preserving).  ``row_group`` is the per-row
     routed group, computed once per step.  ``row_sims`` optionally carries
     the step-constant all-pairs row Tanimoto; None computes it in-round.
-    ``search_plan`` is the step's sort plan ``(rows, pops, keys, order)``;
-    None sorts in-call.
+    ``search_plan`` is the step's sort plan ``(rows, pops, keys, order)``
+    for the sorted search; None runs the per-row search (no sort).
 
     Updates the state's tables in place; returns (state with its new
     counters, pending, assigned, strikes).
@@ -410,10 +426,9 @@ def _insert_round(
     dev = row_ls.device
     tile = state.t_pk.shape[1]
     row_idx = torch.arange(m, dtype=_I32, device=dev)
-    guard_g = state.g_ls.shape[0] - 1
     force_lead = strikes >= 2
 
-    # ---- 2. in-group candidate search (sorted tile search) ----
+    # ---- 2. in-group candidate search (sorted on a plan, else per row) ----
     if search_plan is not None:
         srows, spops, skey, order = search_plan
         best_sim, best = tile_search_planned(
@@ -421,9 +436,9 @@ def _insert_round(
             state.t_slot, pending,
         )
     else:
-        best_sim, best = tile_search_sorted(
+        best_sim, best = tile_search_rows(
             row_pk, row_pop, row_group, state.t_pk, state.t_pops,
-            state.t_slot, pending, guard_group=guard_g,
+            state.t_slot, pending,
         )
     has_cand = best_sim > -1.5
     best_l = best.long()
@@ -828,6 +843,8 @@ def _split_topk_impl(
 
     Returns (state, number of oversized groups remaining).  ``lax.top_k``
     takes lower indices first on ties; a stable descending sort does too.
+    A split whose new group would reach the guard slot waits (it counts as
+    remaining) until the host grows the group table.
     """
     g_cap = state.g_count.shape[0]
     live = torch.arange(g_cap, device=state.g_count.device) < state.g_num
@@ -835,6 +852,7 @@ def _split_topk_impl(
     vals, gs = torch.sort(counts, descending=True, stable=True)
     vals, gs = vals[:k], gs[:k].to(_I32)
     active = vals > fanout
+    active = active & (state.g_num + _icumsum(active.to(_I32)) - 1 < g_cap - 1)
     n_over = _isum(counts > fanout)
     state = _split_groups_device_impl(state, gs, active)
     return state, n_over - _isum(active)
@@ -1048,6 +1066,102 @@ def _scan_fit_packed_impl(
     return state, assigned, encs
 
 
+def _reconstruct_ls_chunk(
+    state: BatchState, start: int, chunk: int, n_features: int
+) -> torch.Tensor:
+    r"""Dense linear sums of cluster slots [start, start+chunk)."""
+    slots = torch.arange(start, start + chunk, dtype=_I32, device=state.n.device)
+    slots = slots.clamp_max(state.n.shape[0] - 1)
+    return _cluster_ls_of(state, slots, n_features)
+
+
+def _prep_buffer_rows(row_ls: torch.Tensor, row_n: torch.Tensor):
+    r"""CF-row prep from pre-aggregated buffers (majority centroid rows)."""
+    cent = majority_centroid_from_sums(row_ls, row_n.clamp_min(1))
+    row_pk = pack_fingerprints_device(cent)
+    row_pop = _isum(cent.to(_I32), -1)
+    return row_ls, row_n, cent.to(_CENT_DT), row_pk, row_pop
+
+
+def _predict_step(
+    state: BatchState,
+    packed: torch.Tensor,  # (M, F8) uint8 query rows
+    valid: torch.Tensor,  # (M,) bool
+    g_num: int,  # live groups (read on the host once per predict call)
+    *,
+    n_features: int,
+    block: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    r"""Read-only nearest-cluster probe: route each query to its best group,
+    then score that group's packed tile.
+
+    The sorted search runs at the shapes where the JAX engine takes its
+    sorted Pallas search; the per-row search everywhere else.  Returns
+    (best_sim, slot), slot -1 where the routed tile holds no live cell.
+    """
+    bits = unpack_fingerprints_device(packed, n_features)
+    row_cent = bits.to(_CENT_DT)
+    row_pop = _isum(bits.to(_I32), -1)
+    row_group = _route_groups(
+        row_cent, row_pop, state.g_cent, state.g_pops, g_num, valid, block
+    )
+    m, f8 = packed.shape
+    fc = state.t_pk.shape[1]
+    if m % 64 == 0 and f8 % 128 == 0 and fc % 128 == 0:
+        best_sim, best_slot = tile_search_sorted(
+            packed, row_pop, row_group, state.t_pk, state.t_pops,
+            state.t_slot, valid, guard_group=state.g_ls.shape[0] - 1,
+        )
+    else:
+        best_sim, best_slot = tile_search_rows(
+            packed, row_pop, row_group, state.t_pk, state.t_pops,
+            state.t_slot, valid,
+        )
+    return best_sim, torch.where(best_sim > -1.5, best_slot, -1)
+
+
+def _pool_dead_rows(state: BatchState) -> torch.Tensor:
+    r"""``num_ls`` minus the live ``ls_ref`` count (see
+    ``BatchTree.pool_dead_rows``)."""
+    c_cap = state.n.shape[0]
+    iota = torch.arange(c_cap, dtype=_I32, device=state.n.device)
+    live = (iota < state.num) & (state.ls_ref >= 0)
+    return state.num_ls - _isum(live)
+
+
+def _load_rows_by_mol(
+    X: "np.ndarray | Path | str | tp.Sequence[Path]",
+    mol_ids: list[int],
+    initial_mol: int,
+    input_is_packed: bool,
+) -> tuple[np.ndarray, list[int]]:
+    r"""(packed fingerprint rows, matching mol ids) for ``mol_ids``, read
+    from an array, an ``.npy`` file or a sequence of ``.npy`` files.
+
+    File sequences require globally sorted indices, so the returned mol
+    ids may be a permutation of the input.  A copy of the JAX engine's
+    host-only helper (its module imports JAX).
+    """
+    arr_idxs = [m - initial_mol for m in mol_ids]
+    if isinstance(X, (Path, str)):
+        rows = np.asarray(np.load(X, mmap_mode="r")[arr_idxs])
+    elif isinstance(X, np.ndarray):
+        rows = X[arr_idxs]
+    else:  # sequence of .npy paths
+        from bblean_tpu_torch.fingerprints import _get_fingerprints_from_file_seq
+
+        order = np.argsort(arr_idxs)
+        rows = _get_fingerprints_from_file_seq(
+            tp.cast(tp.Sequence[Path], X),
+            [arr_idxs[i] for i in order],
+        )
+        mol_ids = [mol_ids[i] for i in order]
+    rows = np.asarray(rows, dtype=np.uint8)
+    if not input_is_packed:
+        rows = np.packbits(rows, axis=-1)
+    return rows, mol_ids
+
+
 class BatchTree:
     r"""Host driver for the batched engine (data plane on the device,
     topology control plane on the host).
@@ -1133,9 +1247,10 @@ class BatchTree:
         # Host inputs stage in chunks of `stage_windows` scan windows
         self.stage_windows = max(1, stage_windows)
         self._boundary_queue: list[dict] = []
-        # Per-inserted-row slot assignments + mol bookkeeping (host side)
+        # Per-inserted-row slot assignments + mol bookkeeping (host side):
+        # flat mol ids per scan window, a list of mol ids per row for buffers
         self._row_slots: list[tuple[tp.Any, int]] = []
-        self._row_mols: list[np.ndarray] = []
+        self._row_mols: list[np.ndarray | list[list[int]]] = []
 
     def _scalars(self) -> tuple[torch.Tensor, torch.Tensor]:
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -1152,6 +1267,19 @@ class BatchTree:
         g_num = _host_int(self.state.g_num)
         self._g_upper = g_num
         return g_num
+
+    @property
+    def pool_dead_rows(self) -> int:
+        r"""Leaked linear-sum pool rows (telemetry).
+
+        In-step guards can kill a multi-member creation after its pool ref
+        was consumed by the allocation cumsum (the ``fits_g`` kill site in
+        ``_insert_round``).  Slots are never freed, so every live ref
+        belongs to a live slot and the dead count is exactly
+        ``num_ls - #live refs``.  The device ``num_ls`` counter includes
+        dead rows, so leaks cost pool growth, never corruption.
+        """
+        return _host_int(_pool_dead_rows(self.state))
 
     def _scan_g_headroom(self) -> int:
         r"""Free group slots demanded before a scan window runs: 2x the
@@ -1271,6 +1399,38 @@ class BatchTree:
             self._submit_scan(dev_buf, dev_start, n_valid, mol_arr[start:stop])
         self.flush()
 
+    def warm_programs(self, dev_fps: np.ndarray | torch.Tensor) -> None:
+        r"""Run the retry path's step and ``max(2, pipeline_depth)`` scan
+        windows once with zero valid rows; every state table stays as it
+        is (bar the split pass that a flush would run anyway).
+
+        PyTorch runs eagerly, so there is no compile step to warm: on the
+        card this builds (or loads) the kernels and warms the caching
+        allocator with the step's and the windows' working set.
+        ``dev_fps`` must hold at least ``scan_batches * batch_size`` rows.
+        """
+        m = self.batch_size
+        dev_fps = torch.as_tensor(dev_fps).to(self.device, torch.uint8)
+        if self.device.type == "cuda":
+            tile_search._lib()
+        thr, tol = self._scalars()
+        rows = _slice_prep_fp_rows_impl(dev_fps, 0, 0, m, self.n_features)
+        self.state, _assigned, _enc = _batch_step_impl(
+            self.state, *rows, thr, tol, criterion=self.merge_criterion,
+            block=self.route_block, max_rounds=self.max_rounds, narrow=m // 4,
+        )
+        self._split_oversized_groups()
+        for _ in range(max(2, self.pipeline_depth)):
+            self.state, _a, _e = _scan_fit_packed_impl(
+                self.state, dev_fps, 0, 0, thr, tol,
+                k=self.scan_batches, m=m, n_features=self.n_features,
+                criterion=self.merge_criterion, block=self.route_block,
+                max_rounds=self.max_rounds, narrow=m // 4,
+                split_k=self.split_k, fanout=self.fanout,
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _submit_scan(
         self,
         dev_fps: torch.Tensor,
@@ -1331,6 +1491,69 @@ class BatchTree:
             mol_indices,
         )
 
+    def insert_buffers(
+        self,
+        buffers: np.ndarray,
+        mol_index_seqs: tp.Sequence[tp.Sequence[int]],
+    ) -> None:
+        r"""Insert pre-aggregated CF buffers ``[linear_sum..., n]``, one row
+        per buffer, in batches of ``batch_size`` (the last one padded)."""
+        ls = np.asarray(buffers)[:, :-1].astype(np.int32)
+        ns = np.asarray(buffers)[:, -1].astype(np.int32)
+        mols = [list(s) for s in mol_index_seqs]
+        m = self.batch_size
+        for start in range(0, len(ls), m):
+            stop = min(start + m, len(ls))
+            chunk_ls = ls[start:stop]
+            chunk_n = ns[start:stop]
+            pad = m - (stop - start)
+            if pad:
+                chunk_ls = np.pad(chunk_ls, ((0, pad), (0, 0)))
+                chunk_n = np.pad(chunk_n, (0, pad))
+            rows = _prep_buffer_rows(
+                torch.from_numpy(np.ascontiguousarray(chunk_ls)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(chunk_n)).to(self.device),
+            )
+            self._submit_batch(rows, mols[start:stop], chunk_n > 0)
+        self.flush()
+
+    def _submit_batch(
+        self,
+        rows: tuple[torch.Tensor, ...],
+        mols: list[list[int]],
+        host_valid: np.ndarray,
+    ) -> None:
+        r"""Run one batch step and queue its boundary (settled, with its
+        retries, every ``split_interval`` batches)."""
+        m = self.batch_size
+        self._ensure_capacity(m)
+        thr, tol = self._scalars()
+        self.state, assigned, enc = _batch_step_impl(
+            self.state, *rows, thr, tol, criterion=self.merge_criterion,
+            block=self.route_block, max_rounds=self.max_rounds, narrow=m // 4,
+        )
+        n_valid = int(host_valid.sum())
+        self._num_upper += n_valid
+        self._ls_upper += n_valid  # promotions + pooled creations <= rows
+        # Creations open at most ceil(n/tile) chunk groups per routed group;
+        # in-step clamping pends anything beyond capacity
+        self._g_upper += max(16, 4 * (n_valid // self.tile + 1))
+        self._row_slots.append((assigned, len(mols)))
+        self._row_mols.append(mols)
+        self._boundary_queue.append(
+            {
+                "slot_idx": len(self._row_slots) - 1,
+                "rows": rows,
+                "host_valid": host_valid,
+                "enc": enc,
+            }
+        )
+        # One split pass per batch keeps saturated groups from shedding a
+        # near-empty overflow chunk group every batch
+        self._split_oversized_groups()
+        if len(self._boundary_queue) >= self.split_interval:
+            self.flush()
+
     def flush(self) -> None:
         r"""Settle every queued boundary, then a final split pass."""
         while self._boundary_queue:
@@ -1338,9 +1561,16 @@ class BatchTree:
         self._split_oversized_groups()
 
     def _process_oldest_boundary(self) -> None:
-        r"""Pop and settle the OLDEST queued boundary: refresh the host's
-        counter bounds from its sync payload and retry its pending rows."""
+        r"""Pop and settle the OLDEST queued boundary.  A scan window's
+        refreshes the host's counter bounds from its sync payload and
+        retries its pending rows; a single batch's reads its ``enc`` and
+        retries the batch if rows are left."""
         q = self._boundary_queue.pop(0)
+        if "sync" not in q:
+            if _host_int(q["enc"]) // 1000 > 0:
+                self._retry_batch(q)
+                self._split_oversized_groups()
+            return
         k = self.scan_batches
         flat = _host(q["sync"])
         pending = flat[:-3] // 1000
@@ -1363,6 +1593,36 @@ class BatchTree:
         if (pending > 0).any():
             self._retry_scan(q, pending)
             self._split_oversized_groups()
+
+    def _retry_batch(self, q: dict) -> None:
+        r"""Drain a batch whose step exhausted max_rounds (rare): split, mask
+        the already-assigned rows, re-step until done."""
+        row_ls, row_n, row_cent, row_pk, row_pop = q["rows"]
+        host_valid = q["host_valid"]
+        assigned_dev, count = self._row_slots[q["slot_idx"]]
+        final = np.array(_host(assigned_dev))
+        thr, tol = self._scalars()
+        for _attempt in range(64):
+            missing = (final == -1) & host_valid
+            if not missing.any():
+                break
+            self._split_oversized_groups(drain=True)
+            row_n = torch.where(torch.from_numpy(missing).to(self.device), row_n, 0)
+            self._ensure_capacity(self.batch_size)
+            self.state, assigned, _enc = _batch_step_impl(
+                self.state, row_ls, row_n, row_cent, row_pk, row_pop,
+                thr, tol, criterion=self.merge_criterion,
+                block=self.route_block, max_rounds=self.max_rounds,
+                narrow=self.batch_size // 4,
+            )
+            n_miss = int(missing.sum())
+            self._num_upper += n_miss
+            self._g_upper += n_miss
+            self._ls_upper += n_miss
+            final[missing] = _host(assigned)[missing]
+        else:
+            raise RuntimeError("batch engine failed to drain a batch")
+        self._row_slots[q["slot_idx"]] = (final, count)
 
     def _retry_scan(self, q: dict, pending_per_batch: np.ndarray) -> None:
         r"""Drain a scan window some of whose batches exhausted max_rounds
@@ -1424,11 +1684,170 @@ class BatchTree:
             if not drain or _host_int(n_left) <= 0:
                 return
 
+    # -- refinement ----------------------------------------------------------
+
+    def reset(
+        self,
+        *,
+        threshold: float | None = None,
+        merge_criterion: str | None = None,
+        tolerance: float | None = None,
+    ) -> None:
+        r"""Drop all clusters (a fresh state on ``device`` and cleared host
+        bookkeeping), optionally switching the merge criterion, threshold
+        or tolerance for the next fit.  Capacities are kept."""
+        if threshold is not None:
+            self.threshold = threshold
+        if merge_criterion is not None:
+            self.merge_criterion = merge_criterion
+        if tolerance is not None:
+            self.tolerance = tolerance
+        self.state = _init_state(
+            self.capacity, self.g_capacity, self.tile, self.n_features,
+            self.ls_capacity, self.device,
+        )
+        self._num_upper = 0
+        self._g_upper = 1
+        self._ls_upper = 0
+        self._boundary_queue = []
+        self._row_slots = []
+        self._row_mols = []
+
+    def refine_inplace(
+        self,
+        X: "np.ndarray | Path | str | tp.Sequence[Path]",
+        initial_mol: int = 0,
+        input_is_packed: bool = True,
+        n_largest: int = 1,
+        *,
+        threshold: float | None = None,
+        merge_criterion: str | None = None,
+        tolerance: float | None = None,
+    ) -> "BatchTree":
+        r"""Explode the ``n_largest`` clusters into singletons and re-fit.
+
+        Surviving clusters re-insert as pre-aggregated CF buffers,
+        largest first, then the exploded rows re-insert as singletons
+        (their fingerprints are reloaded from ``X`` by molecule id).
+        """
+        if n_largest < 0:
+            raise ValueError("n_largest must be >= 0")
+        sizes = self.cluster_sizes()
+        ls = self.linear_sums()
+        mols = self.cluster_mols()
+        order = np.argsort(-sizes, kind="stable")
+        big, rest = order[:n_largest], order[n_largest:]
+
+        exploded_mols = [m for i in big for m in mols[i]]
+        rows, row_mols = _load_rows_by_mol(
+            X, exploded_mols, initial_mol, input_is_packed
+        )
+        buffers = np.concatenate(
+            [ls[rest], sizes[rest, None]], axis=1, dtype=np.int64
+        )
+        del ls
+        buffer_mols = [mols[i] for i in rest]
+
+        self.reset(
+            threshold=threshold, merge_criterion=merge_criterion,
+            tolerance=tolerance,
+        )
+        if len(buffers):
+            self.insert_buffers(buffers, buffer_mols)
+        if len(rows):
+            self.fit_packed(rows, row_mols)
+        return self
+
+    def recluster_inplace(
+        self,
+        iterations: int = 1,
+        extra_threshold: float = 0.0,
+        shuffle: bool = False,
+        seed: int | None = None,
+    ) -> "BatchTree":
+        r"""Re-insert every cluster as a CF buffer, optionally shuffled (a
+        numpy generator seeded with ``seed``), raising the threshold by
+        ``extra_threshold`` per iteration."""
+        rng = np.random.default_rng(seed)
+        for _ in range(iterations):
+            sizes = self.cluster_sizes()
+            ls = self.linear_sums()
+            mols = self.cluster_mols()
+            order = (
+                rng.permutation(len(sizes))
+                if shuffle
+                else np.argsort(-sizes, kind="stable")
+            )
+            buffers = np.concatenate(
+                [ls[order], sizes[order, None]], axis=1, dtype=np.int64
+            )
+            del ls
+            buffer_mols = [mols[i] for i in order]
+            self.reset(threshold=self.threshold + extra_threshold)
+            self.insert_buffers(buffers, buffer_mols)
+        return self
+
     # -- extraction ----------------------------------------------------------
 
     def cluster_sizes(self) -> np.ndarray:
         self.flush()
         return _host(self.state.n)[: self.num_clusters]
+
+    def linear_sums(self) -> np.ndarray:
+        r"""Dense (C, F) int32 linear sums, rebuilt from the sparse pool and
+        the singletons' tile bits in chunks of 2^15 slots."""
+        self.flush()
+        ncl = self.num_clusters
+        out = np.empty((ncl, self.n_features), np.int32)
+        chunk = 1 << 15
+        for start in range(0, ncl, chunk):
+            size = min(chunk, ncl - start)
+            rows = _reconstruct_ls_chunk(self.state, start, chunk, self.n_features)
+            out[start : start + size] = _host(rows)[:size]
+        return out
+
+    def packed_centroids(self) -> np.ndarray:
+        r"""Majority-vote centroids of all clusters, packed uint8."""
+        ls = self.linear_sums()
+        n = self.cluster_sizes()
+        cent = np.where(
+            (n > 1)[:, None], ls >= (n[:, None] * 0.5), np.clip(ls, 0, 1)
+        ).astype(np.uint8)
+        return np.packbits(cent, axis=-1)
+
+    def predict_packed(
+        self, packed_fps: np.ndarray, *, batch: int = 8192
+    ) -> tuple[np.ndarray, np.ndarray]:
+        r"""Nearest-cluster probe for new (packed) fingerprints, read-only.
+
+        Returns ``(slots, sims)``: the best cluster slot per query (the id
+        space of :meth:`assignments`; -1 when the routed tile is empty) and
+        the float64 value of the f32 Tanimoto similarity to that cluster's
+        centroid.  Queries go in batches of ``batch`` (the last padded);
+        the search's launch mode follows the batch's shape
+        (:func:`_predict_step`).
+        """
+        self.flush()
+        num = len(packed_fps)
+        g_num = self.num_groups
+        slots = np.empty(num, np.int64)
+        sims = np.empty(num, np.float64)
+        for start in range(0, num, batch):
+            chunk = np.asarray(packed_fps[start : start + batch], np.uint8)
+            n_valid = len(chunk)
+            if n_valid < batch:
+                chunk = np.pad(chunk, ((0, batch - n_valid), (0, 0)))
+            valid = np.zeros(batch, bool)
+            valid[:n_valid] = True
+            sim, slot = _predict_step(
+                self.state,
+                torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device),
+                torch.from_numpy(valid).to(self.device), g_num,
+                n_features=self.n_features, block=self.route_block,
+            )
+            slots[start : start + n_valid] = _host(slot)[:n_valid]
+            sims[start : start + n_valid] = _host(sim)[:n_valid]
+        return slots, sims
 
     def _materialize_slots(self) -> None:
         r"""Pull the device-side assignment vectors in one transfer."""
@@ -1447,14 +1866,30 @@ class BatchTree:
 
     def _flat_assignments(self) -> tuple[np.ndarray, np.ndarray]:
         r"""(mol ids, cluster slot per mol) over every inserted row, in
-        insertion order."""
+        insertion order; a buffer row's slot repeats for each of its mols."""
         self.flush()
         self._materialize_slots()
-        if not self._row_slots:
+        mol_parts: list[np.ndarray] = []
+        slot_parts: list[np.ndarray] = []
+        for (slots, _count), mols in zip(self._row_slots, self._row_mols):
+            if isinstance(mols, np.ndarray):  # singleton rows, flat ids
+                mol_parts.append(mols)
+                slot_parts.append(slots)
+            else:  # buffer rows: one list of mol ids per row
+                lens = np.fromiter(
+                    (len(ml) for ml in mols), dtype=np.int64, count=len(mols)
+                )
+                if lens.sum() == 0:
+                    continue
+                mol_parts.append(
+                    np.concatenate([np.asarray(ml, np.int64) for ml in mols if ml])
+                )
+                slot_parts.append(np.repeat(slots[: len(mols)], lens))
+        if not mol_parts:
             return np.empty(0, np.int64), np.empty(0, np.int64)
         return (
-            np.concatenate(self._row_mols),
-            np.concatenate([s for s, _c in self._row_slots]).astype(np.int64),
+            np.concatenate(mol_parts),
+            np.concatenate(slot_parts).astype(np.int64, copy=False),
         )
 
     def assignments(self) -> np.ndarray:

@@ -1,0 +1,152 @@
+r"""Host (NumPy) fingerprint helpers of the port.
+
+Copies of ``bblean_tpu``'s host helpers, so that the port and its smoke run
+need nothing of the JAX package: ``make_fake_fingerprints`` and the
+multi-file gather ``_get_fingerprints_from_file_seq`` (with its ``.npy``
+header reader) from ``bblean_tpu/fingerprints.py``, and the float64
+``jt_isim_from_sum`` from ``bblean_tpu/_np_similarity.py``.  They are the
+same code, so a seed gives the same fingerprints in both packages.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+import warnings
+from pathlib import Path
+
+import numpy as np
+from numpy.typing import DTypeLike, NDArray
+
+__all__ = ["make_fake_fingerprints", "jt_isim_from_sum"]
+
+
+def make_fake_fingerprints(
+    num: int,
+    n_features: int = 2048,
+    pack: bool = True,
+    seed: int | None = None,
+    dtype: DTypeLike = np.uint8,
+) -> NDArray[np.uint8]:
+    r"""Generate synthetic fingerprints with realistic popcount statistics.
+
+    Popcounts are drawn from a truncated normal (loc=750, scale=400, clipped to
+    (1, n_features-1)) and bits are permuted per row.  Bit-exact with the
+    reference generator (``fingerprints.py:70-108``) for identical seeds, which
+    anchors every golden clustering fixture.
+    """
+    import scipy.stats  # Deferred: scipy import is heavy
+
+    if n_features < 1 or n_features % 8 != 0:
+        raise ValueError("n_features must be a multiple of 8, and greater than 0")
+    if pack and np.dtype(dtype) != np.dtype(np.uint8):
+        raise ValueError("Only np.uint8 dtype is supported for packed input")
+
+    loc, scale = 750, 400
+    lo, hi = 1, n_features - 1
+    rng = np.random.default_rng(seed)
+    popcount_sample = scipy.stats.truncnorm.rvs(
+        (lo - loc) / scale,
+        (hi - loc) / scale,
+        loc=loc,
+        scale=scale,
+        size=num,
+        random_state=rng,
+    )
+    ones_per_row = np.rint(popcount_sample).astype(np.int64)
+    # Build each row as [1]*ones + [0]*zeros, then shuffle within the row
+    run_lengths = np.empty(num * 2, dtype=np.int64)
+    run_lengths[0::2] = ones_per_row
+    run_lengths[1::2] = n_features - ones_per_row
+    bits = np.repeat(np.tile(np.array([1, 0], np.uint8), num), run_lengths)
+    fps = rng.permuted(bits.reshape(num, n_features), axis=-1)
+    if pack:
+        return np.packbits(fps, axis=1)
+    return fps.astype(dtype, copy=False)
+
+
+def jt_isim_from_sum(linear_sum: NDArray[np.integer], n_objects: int) -> float:
+    r"""iSIM Jaccard-Tanimoto from a linear sum and an object count.
+
+    O(N) estimator of the average pairwise Tanimoto similarity of a set
+    (equivalently, 1 minus the Tanimoto diameter).
+    """
+    if n_objects < 2:
+        warnings.warn(
+            f"Invalid n_objects = {n_objects} in isim. Expected n_objects >= 2",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        return np.nan
+    x = linear_sum.astype(np.uint64, copy=False)
+    sum_k = np.sum(x)
+    if sum_k == 0:
+        # All-zero fingerprints are identical, hence perfectly similar
+        return 1
+    sum_ksq = np.dot(x, x)  # dot conserves the uint64 dtype (exact)
+    a = (sum_ksq - sum_k) / 2  # float64 from here on
+    return a / (a + n_objects * sum_k - sum_ksq)
+
+
+def _read_npy_header(path: Path) -> tuple[tuple[int, ...], np.dtype]:
+    with open(path, mode="rb") as f:
+        major, minor = np.lib.format.read_magic(f)
+        read_header = getattr(np.lib.format, f"read_array_header_{major}_{minor}")
+        shape, _fortran, dtype = read_header(f)
+    return shape, dtype
+
+
+def _get_fps_file_shape_and_dtype(
+    path: Path, raise_if_invalid: bool = False
+) -> tuple[tuple[int, int], np.dtype, bool, bool]:
+    shape, dtype = _read_npy_header(path)
+    shape_is_valid = len(shape) == 2
+    dtype_is_valid = np.issubdtype(dtype, np.integer)
+    if raise_if_invalid and (not shape_is_valid or not dtype_is_valid):
+        raise ValueError(
+            f"Fingerprints file {path} is invalid. Shape: {shape}, DType {dtype}"
+        )
+    return tp.cast(tp.Tuple[int, int], shape), dtype, shape_is_valid, dtype_is_valid
+
+
+def _get_fingerprints_from_file_seq(
+    files: tp.Iterable[Path], idxs: tp.Sequence[int]
+) -> NDArray[np.uint8]:
+    r"""Gather globally-indexed rows spread over consecutive ``.npy`` files.
+
+    ``idxs`` must be sorted ascending; files are treated as one concatenated
+    array in order.
+    """
+    if sorted(idxs) != list(idxs):
+        raise ValueError("idxs must be sorted")
+    files = list(files)
+    idx_arr = np.asarray(idxs, dtype=np.int64)
+
+    n_features: int | None = None
+    per_file_local: list[NDArray[np.int64]] = []
+    offset = 0
+    for f in files:
+        (num, feats), _, _, _ = _get_fps_file_shape_and_dtype(f, raise_if_invalid=True)
+        in_file = idx_arr[(idx_arr >= offset) & (idx_arr < offset + num)]
+        per_file_local.append(in_file - offset)
+        offset += num
+        if n_features is None:
+            n_features = feats
+        elif feats != n_features:
+            raise ValueError(
+                f"Incompatible fingerprint file {f},"
+                f" expected {n_features} features, found {feats}"
+            )
+    total = int(sum(a.size for a in per_file_local))
+    if total != len(idx_arr):
+        raise ValueError("idxs could not be extracted from files")
+
+    out = np.empty((len(idx_arr), tp.cast(int, n_features)), dtype=np.uint8)
+    row = 0
+    for f, local in zip(files, per_file_local):
+        if not local.size:
+            continue
+        out[row : row + local.size] = np.load(f, mmap_mode="r")[local].astype(
+            np.uint8, copy=False
+        )
+        row += local.size
+    return out

@@ -252,6 +252,68 @@ def test_scan_fit_packed_matches_jax(captured) -> None:
     np.testing.assert_array_equal(tencs.numpy(), np.asarray(jencs))
 
 
+def test_prep_buffer_rows_matches_jax(captured) -> None:
+    r"""CF-row prep from pre-aggregated buffers: the captured state's pool
+    rows as linear sums, with counts 0 (padding), 1 and several."""
+    _fps, state, _jr, _tr = captured
+    num_ls = int(state["num_ls"])
+    assert num_ls >= 8
+    row_ls = state["ls"][:num_ls]
+    row_n = np.maximum(row_ls.max(axis=1), 1).astype(np.int32)
+    row_n[:3] = (0, 1, 1)
+    row_ls = row_ls.copy()
+    row_ls[1] = np.clip(row_ls[1], 0, 1)  # a singleton's 0/1 sums
+    ref = jb._prep_buffer_rows(jnp.asarray(row_ls), jnp.asarray(row_n))
+    got = tb._prep_buffer_rows(torch.from_numpy(row_ls), torch.from_numpy(row_n))
+    for a, b in zip(ref, got):
+        assert b.dtype == {
+            jnp.int32: torch.int32, jnp.int8: torch.int8, jnp.uint8: torch.uint8,
+        }[a.dtype.type]
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("start", [0, 1500])
+def test_reconstruct_ls_chunk_matches_jax(captured, start) -> None:
+    r"""Dense sums of a slot range (pool rows and singleton tile bits); the
+    second range runs past the table and clamps to its top slot."""
+    _fps, state, _jr, _tr = captured
+    assert 1500 + 1024 > state["n"].shape[0] > int(state["num"])
+    ref = jb._reconstruct_ls_chunk(_jax_state(state), start, 1024, 2048)
+    got = tb._reconstruct_ls_chunk(state_from_numpy(state), start, 1024, 2048)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_pool_dead_rows_matches_jax(captured) -> None:
+    _fps, state, _jr, _tr = captured
+    leaky = dict(state)
+    leaky["num_ls"] = np.asarray(int(state["num_ls"]) + 3, np.int32)  # 3 dead rows
+    for arrays, dead in ((state, 0), (leaky, 3)):
+        ref = int(jb._pool_dead_rows(_jax_state(arrays)))
+        got = int(tb._pool_dead_rows(state_from_numpy(arrays)))
+        assert got == ref == dead
+
+
+@pytest.mark.parametrize("m", [M, M - 4])
+def test_predict_step_matches_jax(captured, m) -> None:
+    r"""M = 64 takes the sorted search in the port, 60 the per-row search;
+    JAX runs its XLA search on the CPU either way."""
+    fps, state, _jr, _tr = captured
+    packed = np.concatenate([fps[2048 : 2048 + m - 8], fps[:8]])  # 8 known rows
+    valid = np.ones(m, bool)
+    valid[-3:] = False
+    ref = jb._predict_step(
+        _jax_state(state), jnp.asarray(packed), jnp.asarray(valid),
+        n_features=2048, block=M, use_pallas=False,
+    )
+    got = tb._predict_step(
+        state_from_numpy(state), torch.from_numpy(packed),
+        torch.from_numpy(valid), int(state["g_num"]), n_features=2048, block=M,
+    )
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert (got[1].numpy()[:-3] >= 0).all() and (got[1].numpy()[-3:] == -1).all()
+
+
 def _fit_both(fps, **kw):
     j = jb.BatchTree(2048, **kw)
     j.fit_packed(fps, range(len(fps)))

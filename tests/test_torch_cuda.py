@@ -1,5 +1,7 @@
-r"""The port on a CUDA card: the tile-search kernel against its plain version,
-and CPU and CUDA fits giving the same labels.
+r"""The port on a CUDA card: the tile-search kernels (sorted and per-row
+launch modes) against their plain version, CPU and CUDA fits giving the
+same labels, and predict giving the same answer at aligned and unaligned
+batch sizes.
 
 Marked ``cuda``: each test skips unless a CUDA device is available.  This
 file imports no JAX, so that it also runs where JAX is not installed; on
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from bblean_tpu.fingerprints import make_fake_fingerprints
+from bblean_tpu_torch.fingerprints import make_fake_fingerprints
 from bblean_tpu_torch import BatchTree
 from bblean_tpu_torch.ops import tile_search as ts
 
@@ -39,6 +41,10 @@ def _case(rng, m, g, fc, f8, spread, empty=False):
     row_pop = np.unpackbits(row_pk, axis=1).sum(1).astype(np.int32)
     row_group = rng.integers(0, spread, m).astype(np.int32)
     pending = rng.random(m) < 0.8
+    # Pending rows with groups outside the table (clamped as JAX's gather)
+    oob = np.array([g + 7, -1, -g - 5, 1 << 30], np.int32)[:m]
+    row_group[: len(oob)] = oob
+    pending[: len(oob)] = True
     return row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending
 
 
@@ -60,6 +66,33 @@ def test_kernel_matches_plain(cuda, m, g, fc, f8, spread, empty) -> None:
     before = ts.launches
     got = ts.tile_search_sorted(*args, guard_group=g - 1)
     assert ts.launches == before + 1
+    ref = ts.search_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    cand = ref[0] > -1.5
+    assert torch.equal(got[1][cand], ref[1][cand])
+    assert not empty or not bool(cand.any())
+
+
+@pytest.mark.parametrize(
+    "m,g,fc,f8,spread,empty",
+    [
+        (2048, 64, 256, 256, 3, False),
+        (2048, 64, 512, 256, 63, False),
+        (1000, 64, 256, 256, 63, False),  # unaligned row count
+        (1, 4, 8, 256, 1, False),
+        (700, 16, 64, 33, 15, False),  # byte tail: 264-bit rows
+        (300, 8, 40, 13, 7, False),
+        (512, 8, 256, 256, 7, True),
+    ],
+)
+def test_row_kernel_matches_plain(cuda, m, g, fc, f8, spread, empty) -> None:
+    rng = np.random.default_rng(m + fc + f8 + 1)
+    args = [torch.from_numpy(a).to(cuda) for a in _case(rng, m, g, fc, f8, spread, empty)]
+    args[2][~args[6]] = g + 7  # masked rows may carry any group
+    before = ts.row_launches
+    got = ts.tile_search_rows(*args)
+    assert ts.row_launches == before + 1
     ref = ts.search_tiles_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0])
@@ -91,3 +124,23 @@ def test_cpu_and_cuda_fits_give_equal_labels(cuda) -> None:
         tree.fit_packed(fps, range(len(fps)))
         labels.append(tree.assignments())
     np.testing.assert_array_equal(labels[0], labels[1])
+
+
+def test_predict_aligned_and_unaligned_batches_agree(cuda) -> None:
+    r"""batch=1024 runs the sorted kernel, batch=1000 the per-row kernel;
+    slots and sims are identical, and equal the CPU tree's."""
+    fps = make_fake_fingerprints(6000, seed=12620509540149709235)
+    out = {}
+    for device in ("cpu", cuda):
+        tree = BatchTree(2048, threshold=0.3, batch_size=1024, device=device)
+        tree.fit_packed(fps[:4000], range(4000))
+        launches = (ts.launches, ts.row_launches)
+        for batch in (1024, 1000):
+            out[str(device), batch] = tree.predict_packed(fps[4000:], batch=batch)
+        if device != "cpu":
+            assert ts.launches > launches[0] and ts.row_launches > launches[1]
+    ref_slots, ref_sims = out["cpu", 1024]
+    assert (ref_slots >= 0).all()
+    for slots, sims in out.values():
+        np.testing.assert_array_equal(slots, ref_slots)
+        np.testing.assert_array_equal(sims, ref_sims)
