@@ -416,8 +416,8 @@ def _insert_round(
     narrow retry rounds label-preserving).  ``row_group`` is the per-row
     routed group, computed once per step.  ``row_sims`` optionally carries
     the step-constant all-pairs row Tanimoto; None computes it in-round.
-    ``search_plan`` is the step's sort plan ``(rows, pops, keys, order)``
-    for the sorted search; None runs the per-row search (no sort).
+    ``search_plan`` is the step's sort plan ``(rows, pops, keys, order,
+    items)`` for the sorted search; None runs the per-row search (no sort).
 
     Updates the state's tables in place; returns (state with its new
     counters, pending, assigned, strikes).
@@ -430,10 +430,10 @@ def _insert_round(
 
     # ---- 2. in-group candidate search (sorted on a plan, else per row) ----
     if search_plan is not None:
-        srows, spops, skey, order = search_plan
+        srows, spops, skey, order, items = search_plan
         best_sim, best = tile_search_planned(
             srows, spops, skey, order, state.t_pk, state.t_pops,
-            state.t_slot, pending,
+            state.t_slot, pending, items,
         )
     else:
         best_sim, best = tile_search_rows(
@@ -737,8 +737,10 @@ def _batch_step_impl(
         None if criterion == "never-merge" else _tanimoto_gram(row_cent, row_pop)
     )
     guard_g = state.g_ls.shape[0] - 1
-    order, skey = sorted_search_plan(torch.where(pending0, row_group, guard_g))
-    search_plan = (row_pk[order], row_pop[order], skey, order)
+    order, skey, items = sorted_search_plan(
+        torch.where(pending0, row_group, guard_g)
+    )
+    search_plan = (row_pk[order], row_pop[order], skey, order, items)
 
     pending = pending0
     assigned = torch.full((m,), -1, dtype=_I32, device=dev)

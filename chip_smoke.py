@@ -7,17 +7,30 @@ as the phase ends:
 1. device: the card's name and power limit (then the line
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints); build the tile-search kernels;
-2. the sorted tile-search kernel against its plain PyTorch version on the
-   card, at the batch engine's shapes (sims bit-equal, slots equal where a
-   candidate exists), and both versions' times;
-2b. the per-row tile-search kernel against the same plain version, at the
-   narrow rounds' and predict's shapes, and both versions' times;
+2. the tile-search kernel's sorted front end against its plain PyTorch
+   version on the card, at the batch engine's shapes and at tied cells,
+   items longer than the plan's 64 rows, 512-cell tiles and 104- and
+   264-bit rows (the generic path, counted apart); sims bit-equal, slots
+   equal where a candidate exists.  For rows on one, three and 4,095
+   groups, and at the fit's average launch (7,408 of 8,192 rows pending on
+   64 groups, from ``chip_profile.py``): the kernel's time (profiler) and
+   its time per call with the host dispatch (events), the plain version's
+   time, and the bound computed from the case's pending rows and distinct
+   tiles, with what bounds it and the kernel's share of it;
+   ``torch._int_mm`` of the unpacked bits, as information (intersections
+   only, not the same function);
+2b. the per-row front end against the same plain version, at the narrow
+   rounds' and predict's shapes, with the same times and bounds (the fit's
+   average per-row launch: 515 of 2,048 rows pending on 2 groups);
+2c. the sort plan's item-table kernel against its plain version, at the
+   fit's and predict's batches, timed on the fit's keys;
 3. the port on the CPU (plain search) and on the card (kernels) give the
    same labels for 20,000 fingerprints after the fit, a shuffled
    recluster and a refine, and the same predicted slots and sims for
    2,000 queries at an aligned and an unaligned batch size;
 4. the fit path at full size: 1M x 2048-bit fingerprints at t = 0.3 and
-   t = 0.65 through ``BatchTree.fit_packed``, every molecule assigned once,
+   t = 0.65 through ``BatchTree.fit_packed``, no launch on the kernel's
+   generic path, every molecule assigned once,
    sampled clusters meeting the diameter criterion in float64, and the
    cluster counts exactly the port's own (397,552 and 983,222; their
    distance to the JAX engine's record is printed as information);
@@ -32,7 +45,8 @@ as the phase ends:
 Each main-path run (each fit, each predict, the refine) counts the kernels'
 launches from zero and must launch the kernels it runs; the plain search
 must never see CUDA tensors.  The line before the last is a JSON object with
-each kernel's launches, error and times; the last line is
+each kernel's launches, error, times, bound and share at the shape the fits
+give it (the "fit" cases of phases 2, 2b and 2c); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero without a result.
 """
@@ -54,6 +68,17 @@ SEED = 12620509540149709235
 # printed as information; the port's own deterministic counts are held
 # exactly
 JAX_COUNTS = {0.3: 395_183, 0.65: 983_380}
+# Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and dense int8
+# operations/s, for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+# Per timed case: the groups the rows are routed to and the share of rows
+# pending.  "fit" is the average launch of a profiled 1M fit at t = 0.3
+# (chip_profile.py): 7,408 of 8,192 rows pending on 64 groups per sorted
+# launch, 515 of 2,048 on 2 groups per per-row launch
+ROUTES = {"one": (1, 0.8), "few": (3, 0.8), "spread": (4095, 0.8)}
+SORTED_FIT = (64, 7408 / 8192)
+ROWS_FIT = (2, 515 / 2048)
 PORT_COUNTS = {0.3: 397_552, 0.65: 983_222}
 FIT_SETTINGS = {
     0.3: dict(initial_capacity=1 << 19, ls_capacity=1 << 18),
@@ -88,12 +113,21 @@ def phase_device() -> str:
     return name
 
 
-def _search_case(gen, m, g, fc, f8, concentration, empty=False):
+def _search_case(gen, m, g, fc, f8, route, kind=""):
+    r"""Random tile tables and rows on the card; ``route`` is (groups the
+    rows are routed to, share of rows pending).  ``kind``: "" (70% live
+    cells, four pending rows with groups outside the table), "empty" (no
+    live cell), "ties" (cells 1, 5, 9 and 200 of every tile are copies,
+    most rows equal to them: the lowest cell must win), "long" (every row
+    pending on group 0: items longer than ITEM_ROWS)."""
     dev = "cuda"
     t_pk = torch.randint(0, 256, (g, fc, f8), generator=gen, device=dev, dtype=torch.uint8)
     occ = torch.rand((g, fc), generator=gen, device=dev) < 0.7
-    if empty:
+    if kind == "empty":
         occ[:] = False
+    if kind == "ties":
+        occ[:, [1, 5, 9, 200]] = True
+        t_pk[:, [5, 9, 200]] = t_pk[:, 1:2]
     occ[g - 1] = False  # the engine's guard tile holds no live cell
     t_slot = torch.where(
         occ, torch.randint(0, 1 << 20, (g, fc), generator=gen, device=dev, dtype=torch.int32), -1
@@ -103,23 +137,28 @@ def _search_case(gen, m, g, fc, f8, concentration, empty=False):
 
     t_pops = _popcount_u8(t_pk).sum(-1, dtype=torch.int32)
     row_pk = torch.randint(0, 256, (m, f8), generator=gen, device=dev, dtype=torch.uint8)
+    n_route, p_pending = route
+    row_group = torch.randint(0, n_route, (m,), generator=gen, device=dev, dtype=torch.int32)
+    pending = torch.rand(m, generator=gen, device=dev) < p_pending
+    if kind == "long":
+        pending[:] = True
+    elif kind == "ties":
+        tie = torch.rand(m, generator=gen, device=dev) < 0.7
+        row_pk[tie] = t_pk[row_group[tie].long(), 1]
+    else:
+        # Pending rows with groups outside the table: read as JAX's gather
+        # reads them (wrapped once if negative, then clamped), by kernels
+        # and plain
+        oob = torch.tensor([g + 7, -1, -g - 5, 1 << 30], dtype=torch.int32, device=dev)[:m]
+        row_group[: len(oob)] = oob
+        pending[: len(oob)] = True
     row_pop = _popcount_u8(row_pk).sum(-1, dtype=torch.int32)
-    if concentration == "one":
-        row_group = torch.zeros(m, dtype=torch.int32, device=dev)
-    elif concentration == "few":
-        row_group = torch.randint(0, 3, (m,), generator=gen, device=dev, dtype=torch.int32)
-    else:  # spread
-        row_group = torch.randint(0, g - 1, (m,), generator=gen, device=dev, dtype=torch.int32)
-    pending = torch.rand(m, generator=gen, device=dev) < 0.8
-    # Pending rows with groups outside the table: read as JAX's gather reads
-    # them (wrapped once if negative, then clamped), by kernels and plain
-    oob = torch.tensor([g + 7, -1, -g - 5, 1 << 30], dtype=torch.int32, device=dev)[:m]
-    row_group[: len(oob)] = oob
-    pending[: len(oob)] = True
     return row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending
 
 
 def _median_ms(fn, reps=15) -> float:
+    r"""CUDA events around one call, median of ``reps``: the wrapper's host
+    dispatch is inside (the card idles while it runs)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -134,6 +173,50 @@ def _median_ms(fn, reps=15) -> float:
     return float(np.median(times))
 
 
+def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> float:
+    r"""A kernel's own time on the card: mean duration of the ``reps``
+    launches of the kernel called ``name`` in a ``torch.profiler`` trace
+    (CUPTI), without the host dispatch around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in kern)
+    if count != reps:
+        raise AssertionError(f"the profiler saw {count} launches of {name}, not {reps}")
+    return sum(e.device_time_total for e in kern) / count / 1e3
+
+
+def _bound(row_group, pending, tile_shape) -> dict:
+    r"""The least time the card could take for one search, from this case's
+    inputs: each distinct routed tile (cells, popcounts, slots) and each
+    pending row (bits, popcount) read once, every row's group and pending
+    flag read and its (sim, slot) written once, over 3.35 TB/s; each bit of
+    AND + popcount of a pending row against a cell as one int8 multiply-add
+    (2 operations) over 1,979 TOP/s (H100 SXM data sheet).  The int8 rate
+    is a stand-in: the dense items run on the binary mma (.and.popc), for
+    which no H100 peak is published, so the operations bound may be off by
+    that rate's ratio to int8's."""
+    m = row_group.shape[0]
+    g, fc, f8 = tile_shape
+    live = pending.bool()
+    p = int(live.sum())
+    grp = torch.where(row_group < 0, row_group + g, row_group).clamp(0, g - 1)
+    tiles = int(torch.unique(grp[live]).numel())
+    n_bytes = tiles * fc * (f8 + 8) + p * (f8 + 4) + m * (4 + 1 + 8)
+    n_ops = 2 * p * fc * f8 * 8
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
+    return {
+        "pending": p, "tiles": tiles, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
 def _check_equal(got, ref, what: str) -> float:
     r"""Sims bit-equal and slots equal where a candidate exists; returns
     the largest absolute sim difference (0.0 when equal)."""
@@ -146,29 +229,78 @@ def _check_equal(got, ref, what: str) -> float:
     return float((got[0] - ref[0]).abs().max())
 
 
+def _time_case(kernel, plain, bound, name="tile_search_kernel") -> dict:
+    r"""Kernel time (profiler), the same call with its host dispatch
+    (events), the plain version's time, and the bound with its share."""
+    out = dict(bound)
+    out["ms"] = _kernel_ms(kernel, name)
+    out["call_ms"] = _median_ms(kernel)
+    out["plain_ms"] = _median_ms(plain, reps=5)
+    out["share"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def _timing_text(t: dict) -> str:
+    work = f"{t['pending']} pending rows on {t['tiles']} tiles" if "tiles" in t else t["work"]
+    return (
+        f" | kernel {t['ms']:.4f} ms (profiler, mean of 20; {t['call_ms']:.4f} ms "
+        f"a call with dispatch, events), plain {t['plain_ms']:.4f} ms; "
+        f"{work}: bound {t['bound_ms']:.4g} ms ({t['bound_by']}), share "
+        f"{t['share']:.3f}"
+    )
+
+
+def _check_path(ts, before: int, f8: int, what: str) -> None:
+    r"""F8 % 16 != 0 must take the generic path, F8 = 256 the bulk copies."""
+    took = ts.generic_launches - before
+    if took != (f8 % 16 != 0):
+        raise AssertionError(f"{what}: {took} generic-path launches at F8={f8}")
+
+
+def _tie_check(got, row_pk, row_group, t_pk, t_slot, pending, what) -> None:
+    r"""Rows equal to cell 1 of their group score 1.0 there and at its copies
+    5, 9 and 200: the kernel must return cell 1's slot."""
+    grp = row_group.long().clamp(0, t_pk.shape[0] - 1)
+    tie = pending & (row_pk == t_pk[grp, 1]).all(-1)
+    if not bool(tie.any()):
+        raise AssertionError(f"{what}: no tied row")
+    if not (bool((got[0][tie] == 1.0).all()) and torch.equal(got[1][tie], t_slot[grp[tie], 1])):
+        raise AssertionError(f"{what}: a tie did not keep the lowest cell")
+
+
 def phase_kernel() -> dict:
+    r"""The sorted front end against the plain version at the wide rounds'
+    shapes (M = 8192, Fc = 256 and 512, F8 = 256, 33 and 13) on one, three
+    and 4,095 groups and at the fit's average launch, empty tiles, tied
+    cells and one group holding every row; and torch._int_mm on the
+    unpacked bits as information."""
     from bblean_tpu_torch.ops import tile_search as ts
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     g = 4096
     cases = [
-        (m, fc, 256, conc, False)
+        (m, fc, 256, conc, "")
         for m in (8192, 2048)
         for fc in (256, 512)
         for conc in ("one", "few", "spread")
-    ] + [(8192, 256, 256, "spread", True), (2048, 64, 33, "few", False)]
+    ] + [
+        (8192, 256, 256, "fit", ""),
+        (8192, 256, 256, "spread", "empty"), (2048, 64, 33, "few", ""),
+        (2048, 64, 13, "few", ""), (8192, 256, 256, "few", "ties"),
+        (8192, 256, 256, "one", "long"),
+    ]
     max_err = 0.0
     timing = {}
-    for m, fc, f8, conc, empty in cases:
+    for m, fc, f8, conc, kind in cases:
         row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending = _search_case(
-            gen, m, g, fc, f8, conc, empty
+            gen, m, g, fc, f8, SORTED_FIT if conc == "fit" else ROUTES[conc], kind
         )
-        order, skey = ts.sorted_search_plan(torch.where(pending, row_group, g - 1))
+        order, skey, items = ts.sorted_search_plan(torch.where(pending, row_group, g - 1))
         srows, spops = row_pk[order], row_pop[order]
 
         def kernel():
             return ts.tile_search_planned(
-                srows, spops, skey, order, t_pk, t_pops, t_slot, pending
+                srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items
             )
 
         def plain():
@@ -176,42 +308,68 @@ def phase_kernel() -> dict:
                 row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending
             )
 
-        what = f"M={m} Fc={fc} F8={f8} {conc}{' empty' if empty else ''}"
+        what = f"M={m} Fc={fc} F8={f8} {conc}{' ' + kind if kind else ''}"
+        before = ts.generic_launches
         got = kernel()
+        _check_path(ts, before, f8, what)
         max_err = max(max_err, _check_equal(got, plain(), what))
-        if empty and bool((got[0] > -1.5).any()):
+        if kind == "empty" and bool((got[0] > -1.5).any()):
             raise AssertionError("empty tiles produced a candidate")
+        if kind == "ties":
+            _tie_check(got, row_pk, row_group, t_pk, t_slot, pending, what)
         line = f"phase 2 kernel == plain: {what}"
-        if m == 8192 and fc == 256 and f8 == 256 and not empty:
-            kms, pms = _median_ms(kernel), _median_ms(plain)
-            timing[conc] = (kms, pms)
-            line += f" | kernel {kms:.4f} ms, plain {pms:.4f} ms (median of 15)"
+        if m == 8192 and fc == 256 and f8 == 256 and not kind:
+            timing[conc] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
+            line += _timing_text(timing[conc])
         say(line)
+        if m == 8192 and fc == 256 and f8 == 256 and conc == "one" and not kind:
+            say(_int_mm_line(row_pk, t_pk))
     return {"max_abs_err": max_err, "timing": timing}
 
 
+def _int_mm_line(row_pk, t_pk) -> str:
+    r"""torch._int_mm of the unpacked int8 rows (8192 x 2048) against one
+    group's unpacked tile (2048 x 256): intersections only (no Tanimoto,
+    no argmax, one tile for every row), so not the same function."""
+    from bblean_tpu_torch.engine.batch import unpack_fingerprints_device
+
+    f = row_pk.shape[1] * 8
+    a = unpack_fingerprints_device(row_pk, f).to(torch.int8).contiguous()
+    b = unpack_fingerprints_device(t_pk[0], f).to(torch.int8).contiguous().t()
+    ms = _median_ms(lambda: torch._int_mm(a, b))
+    return (
+        f"phase 2 information: torch._int_mm {tuple(a.shape)} x {tuple(b.shape)} "
+        f"int8 -> int32, intersections only: {ms:.4f} ms (events, median of 15)"
+    )
+
+
 def phase_row_kernel() -> dict:
-    r"""The per-row kernel against the plain version: the narrow rounds'
+    r"""The per-row front end against the plain version: the narrow rounds'
     width (2048), an unaligned width (1000), the fit's batch (8192);
-    256- and 512-cell tiles; 2048- and 264-bit rows; rows on one group, on
-    three, and on all 4,095; all-empty tiles; a pending mask, the masked
-    rows carrying out-of-range groups."""
+    256- and 512-cell tiles; 2048-, 264- and 104-bit rows; rows on one
+    group, on three, on all 4,095, and at the fit's average per-row
+    launch; all-empty tiles; tied cells; a pending mask, the masked rows
+    carrying out-of-range groups."""
     from bblean_tpu_torch.ops import tile_search as ts
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     g = 4096
     cases = [
-        (m, fc, f8, conc, False)
+        (m, fc, f8, conc, "")
         for m in (8192, 2048, 1000)
         for fc in (256, 512)
         for f8 in (256, 33)
         for conc in ("one", "few", "spread")
-    ] + [(2048, 256, 256, "spread", True), (1000, 512, 33, "few", True)]
+    ] + [
+        (2048, 256, 256, "fit", ""),
+        (2048, 256, 256, "spread", "empty"), (1000, 512, 33, "few", "empty"),
+        (2048, 64, 13, "few", ""), (2048, 256, 256, "few", "ties"),
+    ]
     max_err = 0.0
     timing = {}
-    for m, fc, f8, conc, empty in cases:
+    for m, fc, f8, conc, kind in cases:
         row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending = _search_case(
-            gen, m, g, fc, f8, conc, empty
+            gen, m, g, fc, f8, ROWS_FIT if conc == "fit" else ROUTES[conc], kind
         )
         row_group = torch.where(pending, row_group, g + 7)
 
@@ -225,18 +383,65 @@ def phase_row_kernel() -> dict:
                 row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending
             )
 
-        what = f"M={m} Fc={fc} F8={f8} {conc}{' empty' if empty else ''}"
+        what = f"M={m} Fc={fc} F8={f8} {conc}{' ' + kind if kind else ''}"
+        before = ts.generic_launches
         got = kernel()
+        _check_path(ts, before, f8, f"per-row {what}")
         max_err = max(max_err, _check_equal(got, plain(), f"per-row {what}"))
-        if empty and bool((got[0] > -1.5).any()):
+        if kind == "empty" and bool((got[0] > -1.5).any()):
             raise AssertionError("empty tiles produced a candidate")
+        if kind == "ties":
+            _tie_check(got, row_pk, row_group, t_pk, t_slot, pending, what)
         line = f"phase 2b per-row kernel == plain: {what}"
-        if m == 2048 and fc == 256 and f8 == 256 and conc != "one" and not empty:
-            kms, pms = _median_ms(kernel), _median_ms(plain)
-            timing[conc] = (kms, pms)
-            line += f" | kernel {kms:.4f} ms, plain {pms:.4f} ms (median of 15)"
+        if m == 2048 and fc == 256 and f8 == 256 and not kind:
+            timing[conc] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
+            line += _timing_text(timing[conc])
         say(line)
     return {"max_abs_err": max_err, "timing": timing}
+
+
+def phase_plan() -> dict:
+    r"""The sort plan's item-table kernel against its plain version on
+    sorted keys like the engine's (pending rows on their routed groups, the
+    rest on the guard group 4,095): the fit's average sorted launch (7,408
+    of 8,192 rows on 64 groups), one group, 4,095 groups, and predict's
+    batches of 1,024 and 131,072 rows; timed on the fit's keys."""
+    from bblean_tpu_torch.ops import tile_search as ts
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    guard = 4095
+    cases = [
+        ("fit", 8192, SORTED_FIT), ("one", 8192, ROUTES["one"]),
+        ("spread", 8192, ROUTES["spread"]), ("spread", 1024, (guard, 1.0)),
+        ("spread", 131_072, (guard, 1.0)),
+    ]
+    timing = {}
+    for conc, m, (n_route, p_pending) in cases:
+        group = torch.randint(0, n_route, (m,), generator=gen, device="cuda", dtype=torch.int32)
+        pending = torch.rand(m, generator=gen, device="cuda") < p_pending
+        skey = torch.sort(torch.where(pending, group, guard), stable=True).values
+
+        def kernel():
+            return ts.plan_items(skey)
+
+        def plain():
+            return ts.plan_items_plain(skey)
+
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"plan item tables differ at M={m} {conc}")
+        line = f"phase 2c plan kernel == plain: M={m} {conc}, {int(got[m])} items"
+        if conc == "fit":
+            n_bytes = 4 * m + 4 * (m + 1)  # keys read, table written
+            timing[conc] = _time_case(kernel, plain, {
+                "work": f"{m} keys in, {m + 1} entries out",
+                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            }, name="plan_items_kernel")
+            line += _timing_text(timing[conc])
+        say(line)
+    return {"max_abs_err": 0.0, "timing": timing}
 
 
 def _reset_counts() -> None:
@@ -244,12 +449,14 @@ def _reset_counts() -> None:
 
     ts.launches = 0
     ts.row_launches = 0
+    ts.generic_launches = 0
+    ts.plan_launches = 0
 
 
-def _counts() -> tuple[int, int]:
+def _counts() -> tuple[int, int, int]:
     from bblean_tpu_torch.ops import tile_search as ts
 
-    return ts.launches, ts.row_launches
+    return ts.launches, ts.row_launches, ts.plan_launches
 
 
 def phase_cpu_vs_cuda() -> None:
@@ -378,7 +585,7 @@ def phase_full_size() -> dict:
     torch.cuda.synchronize()
     say(f"phase 4 input: {N_FPS} x {N_FEATURES}-bit fps staged on the card in {time.perf_counter() - t0:.1f} s")
 
-    launches = {"sorted": 0, "rows": 0}
+    launches = {"sorted": 0, "rows": 0, "plan": 0}
     kept = None
     with _PlainOnCuda() as plain:
         for thr in (0.3, 0.65):
@@ -394,20 +601,27 @@ def phase_full_size() -> dict:
             ncl = tree.num_clusters
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            n_sorted, n_rows = _counts()
+            n_sorted, n_rows, n_plan = _counts()
             launches["sorted"] += n_sorted
             launches["rows"] += n_rows
+            launches["plan"] += n_plan
+            from bblean_tpu_torch.ops import tile_search as ts
+
+            n_generic = ts.generic_launches
             syncs = engine.host_syncs - syncs0
             rel = (ncl - JAX_COUNTS[thr]) / JAX_COUNTS[thr]
             say(
                 f"phase 4 t={thr}: fit {wall:.2f} s, {N_FPS / wall:.0f} fps/s, "
                 f"{ncl} clusters (port's count {PORT_COUNTS[thr]}; JAX record "
                 f"{JAX_COUNTS[thr]}, rel diff {rel:+.5%}), {syncs} host syncs, "
-                f"kernel launches {n_sorted} sorted + {n_rows} per-row, peak "
+                f"kernel launches {n_sorted} sorted + {n_rows} per-row "
+                f"({n_generic} on the generic path) + {n_plan} plan, peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated"
             )
-            if n_sorted <= 0:
-                raise AssertionError("the fit never launched the sorted tile-search kernel")
+            if n_sorted <= 0 or n_plan <= 0:
+                raise AssertionError("the fit never launched the sorted search or the plan kernel")
+            if n_generic:
+                raise AssertionError(f"the fit took the generic path {n_generic} times")
             plain.check("the fit")
             if ncl != PORT_COUNTS[thr]:
                 raise AssertionError(f"cluster count {ncl} is not the port's {PORT_COUNTS[thr]}")
@@ -471,22 +685,23 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> dict:
     from bblean_tpu_torch.engine import batch as engine
 
     queries = fps[:131_072]
-    launches = {"sorted": 0, "rows": 0}
+    launches = {"sorted": 0, "rows": 0, "plan": 0}
     pred = {}
     for batch, kernel in ((8192, "sorted"), (1000, "rows")):
         _reset_counts()
         t0 = time.perf_counter()
         pred[batch] = tree.predict_packed(queries, batch=batch)
         wall = time.perf_counter() - t0
-        n_sorted, n_rows = _counts()
+        n_sorted, n_rows, n_plan = _counts()
         launches["sorted"] += n_sorted
         launches["rows"] += n_rows
+        launches["plan"] += n_plan
         say(
             f"phase 5 predict {len(queries)} queries at batch {batch}: "
             f"{wall:.3f} s, {len(queries) / wall:.0f} queries/s, kernel "
-            f"launches {n_sorted} sorted + {n_rows} per-row"
+            f"launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan"
         )
-        if (n_sorted, n_rows)[kernel == "rows"] <= 0:
+        if (min(n_sorted, n_plan), n_rows)[kernel == "rows"] <= 0:
             raise AssertionError(f"predict at batch {batch} never launched the {kernel} kernel")
         plain.check("predict")
     slots, sims = pred[8192]
@@ -520,18 +735,20 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> dict:
     ncl = tree.num_clusters
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_sorted, n_rows = _counts()
+    n_sorted, n_rows, n_plan = _counts()
     launches["sorted"] += n_sorted
     launches["rows"] += n_rows
+    launches["plan"] += n_plan
     plain.check("the refine")
     say(
         f"phase 5 refine (n_largest=1): {wall:.2f} s, {n_cl} -> {ncl} clusters, "
         f"{engine.host_syncs - syncs0} host syncs, kernel launches {n_sorted} "
-        f"sorted + {n_rows} per-row, pool_dead_rows {tree.pool_dead_rows}, peak "
+        f"sorted + {n_rows} per-row + {n_plan} plan, pool_dead_rows "
+        f"{tree.pool_dead_rows}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated"
     )
-    if n_sorted <= 0:
-        raise AssertionError("the refine never launched the sorted tile-search kernel")
+    if n_sorted <= 0 or n_plan <= 0:
+        raise AssertionError("the refine never launched the sorted search or the plan kernel")
     labels, sizes = _check_assigned_once(tree)
     ls = tree.linear_sums()
     members_of = _members_by_cluster(labels, len(sizes))
@@ -553,35 +770,46 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> dict:
     return launches
 
 
+def _kernel_record(name, replaces, launches, phase) -> dict:
+    r"""One kernel's entry of the JSON line: times, bound and share at the
+    "fit" case, the shape of the fit's average launch."""
+    t = phase["timing"]["fit"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "bblean_tpu_torch/csrc/tile_search.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": phase["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "share": t["share"],
+        "library_ms": None,  # no PyTorch call computes either function
+    }
+
+
 def main() -> None:
     kind = phase_device()
     kern = phase_kernel()
     rows = phase_row_kernel()
+    plan = phase_plan()
     phase_cpu_vs_cuda()
     full = phase_full_size()
-    kms, pms = kern["timing"]["few"]
-    rkms, rpms = rows["timing"]["few"]
     say(json.dumps({"kernels": [
-        {
-            "name": "tile_search_sorted",
-            "route": "cuda",
-            "source": "bblean_tpu_torch/csrc/tile_search.cu",
-            "replaces": "bblean_tpu/ops/pallas_search2.py:61",
-            "launches": full["launches"]["sorted"],
-            "max_abs_err": kern["max_abs_err"],
-            "ms": kms,
-            "plain_ms": pms,
-        },
-        {
-            "name": "tile_search_rows",
-            "route": "cuda",
-            "source": "bblean_tpu_torch/csrc/tile_search.cu",
-            "replaces": "bblean_tpu/ops/pallas_search.py:42",
-            "launches": full["launches"]["rows"],
-            "max_abs_err": rows["max_abs_err"],
-            "ms": rkms,
-            "plain_ms": rpms,
-        },
+        _kernel_record(
+            "tile_search_sorted", "bblean_tpu/ops/pallas_search2.py:61",
+            full["launches"]["sorted"], kern,
+        ),
+        _kernel_record(
+            "tile_search_rows", "bblean_tpu/ops/pallas_search.py:42",
+            full["launches"]["rows"], rows,
+        ),
+        _kernel_record(
+            "sorted_search_plan_items", "bblean_tpu/ops/pallas_search2.py:245",
+            full["launches"]["plan"], plan,
+        ),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -128,10 +128,10 @@ def one_round(captured):
     tpending = trows[1] > 0
     tgroup = torch.from_numpy(np.array(jgroup))
     tstate = state_from_numpy(state)
-    order, skey = tb.sorted_search_plan(
+    order, skey, items = tb.sorted_search_plan(
         torch.where(tpending, tgroup, tstate.g_ls.shape[0] - 1)
     )
-    plan = (trows[3][order], trows[4][order], skey, order)
+    plan = (trows[3][order], trows[4][order], skey, order, items)
     tstate, tpend, tassigned, tstrikes = tb._insert_round(
         tstate, tpending, torch.full((M,), -1, dtype=torch.int32),
         torch.zeros(M, dtype=torch.int32), tgroup, *trows, tthr, ttol,

@@ -1,5 +1,6 @@
 r"""The port on a CUDA card: the tile-search kernels (sorted and per-row
-launch modes) against their plain version, CPU and CUDA fits giving the
+launch modes) and the sort plan's item-table kernel against their plain
+versions, CPU and CUDA fits giving the
 same labels, and predict giving the same answer at aligned and unaligned
 batch sizes.
 
@@ -57,6 +58,9 @@ def _case(rng, m, g, fc, f8, spread, empty=False):
         (700, 16, 64, 33, 15, False),  # byte tail: 264-bit rows
         (300, 8, 40, 13, 7, False),
         (512, 8, 256, 256, 7, True),
+        (8192, 4, 256, 256, 1, False),  # one group: items of ITEM_ROWS rows
+        (2048, 256, 512, 256, 255, False),  # 512-cell tiles, spread
+        (2048, 64, 256, 128, 63, False),  # 1024-bit rows
     ],
 )
 def test_kernel_matches_plain(cuda, m, g, fc, f8, spread, empty) -> None:
@@ -101,18 +105,113 @@ def test_row_kernel_matches_plain(cuda, m, g, fc, f8, spread, empty) -> None:
     assert not empty or not bool(cand.any())
 
 
+def _search(front, args, g):
+    if front == "sorted":
+        return ts.tile_search_sorted(*args, guard_group=g - 1)
+    return ts.tile_search_rows(*args)
+
+
+@pytest.mark.parametrize("front", ["sorted", "rows"])
+@pytest.mark.parametrize("m,spread", [(2048, 3), (512, 63), (40, 1)])
+def test_kernel_keeps_the_first_of_tied_cells(cuda, front, m, spread) -> None:
+    r"""Cells 1, 5, 9 and 200 of every tile are copies of one another and
+    most rows equal that cell: the lowest cell (1) must win, on the
+    CUDA-core and on the tensor-core path alike."""
+    g, fc, f8 = 64, 256, 256
+    rng = np.random.default_rng(m + spread)
+    args = list(_case(rng, m, g, fc, f8, spread))
+    t_pk, t_slot = args[3], args[5]
+    t_pk[: g - 1, 1] = rng.integers(1, 256, (g - 1, f8), dtype=np.uint8)
+    for c in (5, 9, 200):
+        t_pk[:, c] = t_pk[:, 1]
+    t_slot[: g - 1, [1, 5, 9, 200]] = rng.integers(0, 1 << 20, (g - 1, 4))
+    args[4] = np.unpackbits(t_pk, axis=-1).sum(-1).astype(np.int32)
+    grp = np.clip(args[2], 0, g - 2)
+    tie = rng.random(m) < 0.7
+    args[0][tie] = t_pk[grp[tie], 1]
+    args[1] = np.unpackbits(args[0], axis=1).sum(1).astype(np.int32)
+    args[2] = grp.astype(np.int32)
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    got = _search(front, dev, g)
+    ref = ts.search_tiles_plain(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    cand = ref[0] > -1.5
+    assert torch.equal(got[1][cand], ref[1][cand])
+    won = tie & args[6]
+    assert (got[0].cpu().numpy()[won] == 1.0).all()
+    np.testing.assert_array_equal(got[1].cpu().numpy()[won], t_slot[grp[won], 1])
+
+
+@pytest.mark.parametrize("front", ["sorted", "rows"])
+@pytest.mark.parametrize("f8,shift,generic", [(256, 0, False), (13, 0, True), (256, 8, True)])
+def test_kernel_generic_path_is_counted(cuda, front, f8, shift, generic) -> None:
+    r"""F8 % 16 != 0, or rows not 16-byte aligned, take the generic path
+    (ordinary loads, its own launch count); the result is the same."""
+    m, g, fc = 1000, 32, 96
+    rng = np.random.default_rng(f8 + shift)
+    args = [torch.from_numpy(a).to(cuda) for a in _case(rng, m, g, fc, f8, 31)]
+    if shift:  # the same rows at an address 8 bytes past a 16-byte boundary
+        buf = torch.empty(m * f8 + shift, dtype=torch.uint8, device=cuda)
+        args[0] = buf[shift:].view(m, f8).copy_(args[0])
+    before = ts.generic_launches
+    if front == "sorted":  # the wrapper sorts the rows: pass a shifted copy
+        key = torch.where(args[6], args[2], g - 1)
+        order, skey, items = ts.sorted_search_plan(key)
+        srows = args[0][order]
+        if shift:
+            buf = torch.empty(m * f8 + shift, dtype=torch.uint8, device=cuda)
+            srows = buf[shift:].view(m, f8).copy_(srows)
+        got = ts.tile_search_planned(
+            srows, args[1][order], skey, order, *args[3:], items
+        )
+    else:
+        got = ts.tile_search_rows(*args)
+    assert ts.generic_launches == before + generic
+    ref = ts.search_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    cand = ref[0] > -1.5
+    assert torch.equal(got[1][cand], ref[1][cand])
+
+
 def test_kernel_wrapper_rejects_bad_inputs(cuda) -> None:
     rng = np.random.default_rng(0)
     args = [torch.from_numpy(a).to(cuda) for a in _case(rng, 64, 4, 32, 256, 3)]
-    order, skey = ts.sorted_search_plan(args[2])
+    order, skey, items = ts.sorted_search_plan(args[2])
     srows, spops = args[0][order], args[1][order]
-    rest = (args[3], args[4], args[5], args[6])
+    rest = (args[3], args[4], args[5], args[6], items)
     with pytest.raises(ValueError, match="must be"):
         ts.tile_search_planned(srows, spops.long(), skey, order, *rest)
     with pytest.raises(ValueError, match="contiguous"):
         ts.tile_search_planned(srows, spops, skey, order, args[3].transpose(1, 2), *rest[1:])
     with pytest.raises(ValueError, match="CUDA device"):
         ts.tile_search_planned(srows, spops.cpu(), skey, order, *rest)
+    with pytest.raises(ValueError, match="items must have"):
+        ts.tile_search_planned(srows, spops, skey, order, *rest[:4], items[:-1])
+    with pytest.raises(ValueError, match="int32"):
+        ts.plan_items(skey.long())
+
+
+@pytest.mark.parametrize(
+    "runs",
+    [[1], [64], [65], [3, 64, 1, 129, 7], [1] * 50 + [130], [8192], [2] * 4096,
+     [40] * 500, [9000, 1, 11000]],  # the last two: more rows than one pass
+)
+def test_plan_kernel_matches_plain(cuda, runs) -> None:
+    r"""The plan's item table from the kernel equals the plain version's,
+    one launch per plan."""
+    rng = np.random.default_rng(len(runs))
+    groups = np.sort(rng.choice(1 << 20, size=len(runs), replace=False))
+    key = np.repeat(groups, runs).astype(np.int32)
+    rng.shuffle(key)
+    before = ts.plan_launches
+    order, skey, items = ts.sorted_search_plan(torch.from_numpy(key).to(cuda))
+    assert ts.plan_launches == before + 1
+    ref = ts.plan_items_plain(skey)
+    torch.cuda.synchronize()
+    assert torch.equal(items, ref)
+    assert int(items[-1]) == sum(-(-k // ts.ITEM_ROWS) for k in runs)
 
 
 def test_cpu_and_cuda_fits_give_equal_labels(cuda) -> None:

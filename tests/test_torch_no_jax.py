@@ -1,5 +1,6 @@
-r"""The PyTorch port imports no JAX, and neither it nor ``chip_smoke.py``
-imports anything of the JAX package ``bblean_tpu``.
+r"""The PyTorch port imports no JAX, and neither it nor ``chip_smoke.py``,
+``chip_profile.py`` and ``chip_ab.py`` import anything of the JAX package
+``bblean_tpu``.
 
 The import check runs in a subprocess: ``tests/conftest.py`` imports jax
 into the test process itself.  ``chip_smoke.py`` imports the port inside
@@ -24,7 +25,7 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch, bblean_tpu_torch.engine.batch\n"
         "import bblean_tpu_torch.engine.state_io, bblean_tpu_torch._build\n"
         "import bblean_tpu_torch.ops.tile_search, bblean_tpu_torch.fingerprints\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_profile, chip_ab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'bblean_tpu' or m.startswith('bblean_tpu.'))\n"
         "assert not bad, bad\n"
@@ -51,7 +52,8 @@ def _imported_modules(path: Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", [ROOT / "chip_smoke.py", *PORT_SOURCES],
+    "path",
+    [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_ab.py", *PORT_SOURCES],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_nothing_of_the_jax_package(path) -> None:

@@ -127,14 +127,14 @@ def test_planned_search_with_stale_plan_matches_jax() -> None:
     pending_now[1::3] = False  # assigned in an earlier round
 
     key = np.where(pending0, row_group, guard)
-    order, skey = ts.sorted_search_plan(torch.from_numpy(key))
+    order, skey, items = ts.sorted_search_plan(torch.from_numpy(key))
     tt = {k: torch.from_numpy(v) for k, v in dict(
         row_pk=row_pk, row_pop=row_pop, t_pk=t_pk, t_pops=t_pops,
         t_slot=t_slot, pend=pending_now,
     ).items()}
     got = ts.tile_search_planned(
         tt["row_pk"][order], tt["row_pop"][order], skey, order, tt["t_pk"],
-        tt["t_pops"], tt["t_slot"], tt["pend"],
+        tt["t_pops"], tt["t_slot"], tt["pend"], items,
     )
     j_order, j_skey, j_nxt = jax_plan(jnp.asarray(key), guard)
     np.testing.assert_array_equal(order.numpy(), np.asarray(j_order))
@@ -155,6 +155,52 @@ def test_planned_search_with_stale_plan_matches_jax() -> None:
     )
 
 
+def _items_reference(skey: np.ndarray, r: int) -> list[int]:
+    r"""Item starts by a loop: a new item where the key changes and after
+    every ``r`` rows of one key."""
+    starts, run = [], 0
+    for s in range(len(skey)):
+        run = run + 1 if s and skey[s] == skey[s - 1] else 0
+        if run % r == 0:
+            starts.append(s)
+    return starts
+
+
+@pytest.mark.parametrize(
+    "runs",
+    [
+        [1],
+        [64],
+        [65],
+        [200],  # one group past R: split at 64, 128, 192
+        [3, 64, 1, 129, 7],
+        [1] * 50 + [130],
+        [8192],  # the fit's batch on one group
+    ],
+)
+def test_plan_item_table_matches_reference(runs) -> None:
+    r"""The plan's item table: segment boundaries, splits every ITEM_ROWS
+    rows of one group, the count in the table's last entry, and M past
+    the count."""
+    rng = np.random.default_rng(len(runs))
+    groups = np.sort(rng.choice(1 << 20, size=len(runs), replace=False))
+    key = np.repeat(groups, runs).astype(np.int32)
+    rng.shuffle(key)
+    order, skey, items = ts.sorted_search_plan(torch.from_numpy(key))
+    m = len(key)
+    assert items.dtype == torch.int32 and items.shape == (m + 1,)
+    ref = _items_reference(skey.numpy(), ts.ITEM_ROWS)
+    n = int(items[m])
+    assert n == len(ref) == sum(-(-k // ts.ITEM_ROWS) for k in runs)
+    np.testing.assert_array_equal(items[:n].numpy(), ref)
+    assert (items[n:m] == m).all()
+    bounds = ref + [m]
+    for s0, s1 in zip(bounds[:-1], bounds[1:]):
+        assert 1 <= s1 - s0 <= ts.ITEM_ROWS
+        assert (skey[s0:s1] == skey[s0]).all()
+    np.testing.assert_array_equal(skey.numpy(), key[order.numpy()])
+
+
 def test_wrapper_raises_off_cpu_without_the_kernel() -> None:
     r"""Tensors on a device other than the CPU go to the kernel, never to
     the plain version: here ("meta" tensors) the wrapper raises."""
@@ -163,6 +209,19 @@ def test_wrapper_raises_off_cpu_without_the_kernel() -> None:
     meta = [torch.from_numpy(a).to("meta") for a in args]
     with pytest.raises(ValueError, match="one CUDA device"):
         ts.tile_search_sorted(*meta)
+
+
+def test_plan_items_raises_off_cpu_without_the_kernel() -> None:
+    r"""Keys off the CPU go to the plan kernel, never to its plain version:
+    "meta" keys raise, and so do keys of the wrong dtype."""
+    skey = torch.arange(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ts.plan_items(skey.to("meta"))
+    with pytest.raises(ValueError, match="int32"):
+        ts.plan_items(skey.long().to("meta"))
+    np.testing.assert_array_equal(
+        ts.plan_items(skey).numpy(), ts.plan_items_plain(skey).numpy()
+    )
 
 
 def test_failed_build_raises(monkeypatch, tmp_path) -> None:
