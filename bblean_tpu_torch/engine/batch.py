@@ -69,8 +69,9 @@ from bblean_tpu_torch.ops.packing import (
     unpack_fingerprints_device,
 )
 from bblean_tpu_torch.ops import tile_search
+from bblean_tpu_torch.ops.popcount import _popcount_u8
+from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
 from bblean_tpu_torch.ops.tile_search import (
-    _popcount_u8,
     sorted_search_plan,
     tile_search_planned,
     tile_search_rows,
@@ -284,34 +285,6 @@ def _drop_add_(
 def _flat2(tab: torch.Tensor) -> torch.Tensor:
     r"""View (G, Fc, ...) as (G * Fc, ...) for scatters at (group, pos)."""
     return tab.view(tab.shape[0] * tab.shape[1], *tab.shape[2:])
-
-
-# -- int8 products -------------------------------------------------------------
-
-
-def _round_up(x: int, k: int) -> int:
-    return -(-x // k) * k
-
-
-def _pad_int8(a: torch.Tensor, min_rows: int = 1) -> torch.Tensor:
-    r"""Zero-pad an (R, K) int8 matrix to rows >= ``min_rows`` and both
-    dims multiples of 8 (``torch._int_mm``'s CUDA constraints; a zero row or
-    column adds nothing to a product)."""
-    r, k = a.shape
-    rp = max(_round_up(r, 8), min_rows)
-    kp = _round_up(k, 8)
-    if (rp, kp) == (r, k):
-        return a.contiguous()
-    out = torch.zeros((rp, kp), dtype=a.dtype, device=a.device)
-    out[:r, :k] = a
-    return out
-
-
-def _int8_gram(a_pad: torch.Tensor, b: torch.Tensor, rows: int) -> torch.Tensor:
-    r"""Exact int32 ``a @ b.T`` of 0/1 int8 matrices (``a_pad`` from
-    :func:`_pad_int8` with more than 16 rows) -> (rows, len(b))."""
-    b_pad = _pad_int8(b)
-    return torch._int_mm(a_pad, b_pad.t())[:rows, : b.shape[0]]
 
 
 def _tanimoto_gram(

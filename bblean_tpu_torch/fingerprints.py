@@ -1,11 +1,14 @@
 r"""Host (NumPy) fingerprint helpers of the port.
 
 Copies of ``bblean_tpu``'s host helpers, so that the port and its smoke run
-need nothing of the JAX package: ``make_fake_fingerprints`` and the
-multi-file gather ``_get_fingerprints_from_file_seq`` (with its ``.npy``
-header reader) from ``bblean_tpu/fingerprints.py``, and the float64
-``jt_isim_from_sum`` from ``bblean_tpu/_np_similarity.py``.  They are the
-same code, so a seed gives the same fingerprints in both packages.
+need nothing of the JAX package: ``pack_fingerprints`` /
+``unpack_fingerprints``, ``make_fake_fingerprints``, the ``.npy`` header
+introspection (``_get_fps_file_num``, ``_print_fps_file_info``) and the
+multi-file gather (``_FingerprintFileSequence``,
+``_get_fingerprints_from_file_seq``) from ``bblean_tpu/fingerprints.py``,
+and the float64 ``jt_isim_from_sum`` from ``bblean_tpu/_np_similarity.py``.
+They are the same code, so a seed gives the same fingerprints in both
+packages.  The SMILES featurization (RDKit) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +20,27 @@ from pathlib import Path
 import numpy as np
 from numpy.typing import DTypeLike, NDArray
 
-__all__ = ["make_fake_fingerprints", "jt_isim_from_sum"]
+__all__ = [
+    "make_fake_fingerprints",
+    "pack_fingerprints",
+    "unpack_fingerprints",
+    "jt_isim_from_sum",
+]
+
+
+def pack_fingerprints(a: NDArray[np.uint8]) -> NDArray[np.uint8]:
+    r"""Pack a binary (0/1-valued) uint8 fingerprint array along the last axis."""
+    return np.packbits(a, axis=-1)
+
+
+def unpack_fingerprints(
+    a: NDArray[np.uint8], n_features: int | None = None
+) -> NDArray[np.uint8]:
+    r"""Unpack a packed uint8 array into 0/1-valued uint8 bits.
+
+    ``n_features`` trims zero padding when the bit count is not a multiple of 8.
+    """
+    return np.unpackbits(a, axis=-1, count=n_features)
 
 
 def make_fake_fingerprints(
@@ -95,6 +118,10 @@ def _read_npy_header(path: Path) -> tuple[tuple[int, ...], np.dtype]:
     return shape, dtype
 
 
+def _get_fps_file_num(path: Path) -> int:
+    return _read_npy_header(path)[0][0]
+
+
 def _get_fps_file_shape_and_dtype(
     path: Path, raise_if_invalid: bool = False
 ) -> tuple[tuple[int, int], np.dtype, bool, bool]:
@@ -106,6 +133,46 @@ def _get_fps_file_shape_and_dtype(
             f"Fingerprints file {path} is invalid. Shape: {shape}, DType {dtype}"
         )
     return tp.cast(tp.Tuple[int, int], shape), dtype, shape_is_valid, dtype_is_valid
+
+
+def _print_fps_file_info(path: Path, console: tp.Any = None) -> None:
+    r"""Pretty-print shape/dtype/validity of a fingerprint ``.npy`` file."""
+    if console is None:
+        from bblean_tpu_torch._console import get_console
+
+        console = get_console()
+    shape, dtype, shape_ok, dtype_ok = _get_fps_file_shape_and_dtype(path)
+    console.print(f"File: {path.resolve()}")
+    if shape_ok and dtype_ok:
+        console.print("    - [green]Valid fingerprint file[/green]")
+    else:
+        console.print("    - [red]Invalid fingerprint file[/red]")
+    if shape_ok:
+        console.print(f"    - Num. fingerprints: {shape[0]:,}")
+        console.print(f"    - Num. features: {shape[1]:,}")
+    else:
+        console.print(f"    - Shape: {shape}")
+    console.print(f"    - DType: [yellow]{dtype.name}[/yellow]")
+    console.print()
+
+
+class _FingerprintFileSequence:
+    r"""Lazy view over a sequence of ``.npy`` fingerprint files as one array."""
+
+    def __init__(self, files: tp.Iterable[Path]) -> None:
+        self._files = list(files)
+        if not self._files:
+            raise ValueError("At least 1 fingerprint file must be provided")
+
+    def __getitem__(self, idxs: tp.Sequence[int]) -> NDArray[np.uint8]:
+        return _get_fingerprints_from_file_seq(self._files, idxs)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        shape, _, _, _ = _get_fps_file_shape_and_dtype(
+            self._files[0], raise_if_invalid=True
+        )
+        return shape
 
 
 def _get_fingerprints_from_file_seq(

@@ -30,6 +30,8 @@ import ctypes
 
 import torch
 
+from bblean_tpu_torch.ops.popcount import _popcount_u8
+
 __all__ = [
     "sorted_search_plan",
     "plan_items",
@@ -92,13 +94,6 @@ def _lib() -> ctypes.CDLL:
             )
         _kernel_lib = lib
     return _kernel_lib
-
-
-def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
-    r"""Per-byte popcount of a uint8 tensor (SWAR, stays uint8)."""
-    x = x - ((x >> 1) & 0x55)
-    x = (x & 0x33) + ((x >> 2) & 0x33)
-    return (x + (x >> 4)) & 0x0F
 
 
 def _clamp_group(group: torch.Tensor, n_groups: int) -> torch.Tensor:

@@ -40,13 +40,32 @@ as the phase ends:
    centroids; both kernels timed on the tree's tables at batches of 1000,
    1024 and 8192; then ``refine_inplace`` of the largest cluster, with every
    molecule assigned once, sampled linear sums equal to their members'
-   bits and sampled clusters meeting the diameter criterion.
+   bits and sampled clusters meeting the diameter criterion;
+6. the command line at full size (``bblean_tpu_torch.cli.main`` in this
+   process, on ``.npy`` files written under a temporary directory): (a) the
+   1M fingerprints in one file at t = 0.3, (b) in two files with
+   ``--refine-num 1``, (c) in one file at t = 0.65; each run's
+   ``clusters.pkl`` holds every molecule once in clusters of non-increasing
+   size, as many as ``config.json`` says, sampled clusters meet the
+   diameter criterion and sampled stored centroids are their members'
+   majority vote; the walls of the fit (reading and staging included), of each
+   extraction and of each pickle are printed beside the resident-input fit's,
+   with the cost of reading and staging alone; (d) 20,000 fingerprints with
+   ``--device cpu`` and on the card give byte-equal ``clusters.pkl`` and
+   centroids;
+7. the side ops on the card against the same functions on the CPU:
+   popcount and Tanimoto of 8,192 x 2048-bit rows against 1,024 centroids
+   (equal), k-means of 100,000 unpacked centroids of the 1M tree into 1,000
+   clusters (two calls equal; CPU against CUDA on 10,000 rows), t-SNE of
+   5,000 of them over 750 iterations (finite; 5 iterations against the CPU
+   on 2,000 rows to 1e-3 of the embedding's scale, 10 and 20 printed).
 
-Each main-path run (each fit, each predict, the refine) counts the kernels'
-launches from zero and must launch the kernels it runs; the plain search
-must never see CUDA tensors.  The line before the last is a JSON object with
-each kernel's launches, error, times, bound and share at the shape the fits
-give it (the "fit" cases of phases 2, 2b and 2c); the last line is
+Each main-path run (each fit, each predict, the refine, each command-line
+run) counts the kernels' launches from zero and must launch the kernels it
+runs; the plain search must never see CUDA tensors.  The line before the
+last is a JSON object with each kernel's launches, error, times, bound and
+share at the shape the fits give it (the "fit" cases of phases 2, 2b and
+2c); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero without a result.
 """
@@ -57,6 +76,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -80,6 +100,12 @@ ROUTES = {"one": (1, 0.8), "few": (3, 0.8), "spread": (4095, 0.8)}
 SORTED_FIT = (64, 7408 / 8192)
 ROWS_FIT = (2, 515 / 2048)
 PORT_COUNTS = {0.3: 397_552, 0.65: 983_222}
+# Phase 7's sizes: centroids of the 1M tree that k-means clusters, its
+# clusters, and the rows and iterations of the t-SNE embedding
+KMEANS_ROWS = 100_000
+KMEANS_K = 1000
+TSNE_ROWS = 5000
+TSNE_ITERS = 750
 FIT_SETTINGS = {
     0.3: dict(initial_capacity=1 << 19, ls_capacity=1 << 18),
     0.65: dict(initial_capacity=1 << 21, ls_capacity=1 << 18),
@@ -587,6 +613,7 @@ def phase_full_size() -> dict:
 
     launches = {"sorted": 0, "rows": 0, "plan": 0}
     kept = None
+    fit_walls = {}
     with _PlainOnCuda() as plain:
         for thr in (0.3, 0.65):
             torch.cuda.reset_peak_memory_stats()
@@ -600,7 +627,7 @@ def phase_full_size() -> dict:
             tree.fit_packed(dev_fps, range(N_FPS))
             ncl = tree.num_clusters
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            wall = fit_walls[thr] = time.perf_counter() - t0
             n_sorted, n_rows, n_plan = _counts()
             launches["sorted"] += n_sorted
             launches["rows"] += n_rows
@@ -634,9 +661,13 @@ def phase_full_size() -> dict:
         if launches["rows"] <= 0:
             raise AssertionError("the two fits never launched the per-row tile-search kernel")
         del dev_fps
-        phase5 = phase_predict_refine(kept, fps, plain)
+        phase5, centroids = phase_predict_refine(kept, fps, plain)
+        del kept
+        torch.cuda.empty_cache()
+        phase6 = phase_cli(fps, fit_walls, plain)
+    phase_side_ops(centroids)
     return {
-        "launches": {k: launches[k] + phase5[k] for k in launches},
+        "launches": {k: launches[k] + phase5[k] + phase6[k] for k in launches},
     }
 
 
@@ -679,9 +710,10 @@ def _time_predict_searches(tree, queries: np.ndarray) -> dict:
     return out
 
 
-def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> dict:
+def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> tuple[dict, np.ndarray]:
     r"""Phase 5 on the t = 0.3 tree: predict through both kernels, then a
-    refine of the largest cluster."""
+    refine of the largest cluster.  Returns the launches and the tree's
+    first ``KMEANS_ROWS`` packed centroids (phase 7's input)."""
     from bblean_tpu_torch.engine import batch as engine
 
     queries = fps[:131_072]
@@ -711,6 +743,7 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> dict:
     if (slots < 0).any() or (slots >= n_cl).any():
         raise AssertionError("predict returned a slot outside the tree")
     cents = tree.packed_centroids()
+    kmeans_input = cents[:KMEANS_ROWS].copy()
     pick = np.random.default_rng(1).choice(len(queries), size=1000, replace=False)
     q_bits = np.unpackbits(queries[pick], axis=1).astype(np.int64)
     c_bits = np.unpackbits(cents[slots[pick]], axis=1).astype(np.int64)
@@ -767,7 +800,271 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> dict:
         f"multi-member clusters meet the diameter criterion (min float64 "
         f"iSIM {worst:.6f})"
     )
+    return launches, kmeans_input
+
+
+def _staging_alone(path, batch: int = 8192) -> float:
+    r"""Wall of reading the mapped file and staging it onto the card as
+    ``fit_packed`` does (chunks of ``stage_windows`` x ``scan_batches``
+    batches), with nothing else: what the host input adds to a fit."""
+    from bblean_tpu_torch import BatchTree
+
+    probe = BatchTree(N_FEATURES, batch_size=batch, device="cuda")
+    chunk_rows = probe.stage_windows * probe.scan_batches * batch
+    del probe
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = np.load(path, mmap_mode="r")
+    with warnings.catch_warnings():
+        # A read-only mapped file gives a tensor that is only read
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        for start in range(0, len(rows), chunk_rows):
+            chunk = np.ascontiguousarray(rows[start : start + chunk_rows], np.uint8)
+            torch.from_numpy(chunk).to("cuda")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _check_run_dir(out_dir, fps: np.ndarray, threshold: float, what: str) -> dict:
+    r"""The run directory's invariants: every molecule id once, sizes
+    non-increasing, as many clusters as ``config.json`` says, 1,000 sampled
+    clusters meeting the diameter criterion in float64, 200 sampled stored
+    centroids equal to their members' majority vote."""
+    import pickle
+
+    from bblean_tpu_torch.fingerprints import jt_isim_from_sum
+
+    with open(out_dir / "clusters.pkl", "rb") as f:
+        clusters = pickle.load(f)
+    with open(out_dir / "cluster-centroids-packed.pkl", "rb") as f:
+        cents = pickle.load(f)
+    config = json.loads((out_dir / "config.json").read_text())
+    timings = json.loads((out_dir / "timings.json").read_text())
+    sizes = np.fromiter((len(c) for c in clusters), np.int64, len(clusters))
+    flat = np.concatenate([np.asarray(c, np.int64) for c in clusters])
+    if len(flat) != len(fps) or not np.array_equal(np.sort(flat), np.arange(len(fps))):
+        raise AssertionError(f"{what}: clusters.pkl does not hold every molecule once")
+    if (np.diff(sizes) > 0).any():
+        raise AssertionError(f"{what}: clusters are not sorted by size")
+    if not len(clusters) == len(cents) == config["n_clusters"]:
+        raise AssertionError(
+            f"{what}: {len(clusters)} clusters, {len(cents)} centroids, "
+            f"n_clusters {config['n_clusters']}"
+        )
+    if not (out_dir / "input-fps").is_dir():
+        raise AssertionError(f"{what}: no input-fps directory")
+    rng = np.random.default_rng(3)
+    multi = np.flatnonzero(sizes >= 2)
+    worst = np.inf
+    for c in rng.choice(multi, size=min(1000, len(multi)), replace=False):
+        ls = np.unpackbits(fps[clusters[c]], axis=1).sum(0, dtype=np.uint64)
+        worst = min(worst, jt_isim_from_sum(ls, len(clusters[c])))
+    if worst < threshold - 1e-6:
+        raise AssertionError(f"{what}: a sampled cluster has iSIM {worst} < {threshold}")
+    # Half of the sampled centroids from the multi-member clusters
+    pick = np.concatenate([
+        rng.choice(multi, size=min(100, len(multi)), replace=False),
+        rng.choice(len(clusters), size=100, replace=False),
+    ])
+    for c in pick:
+        bits = np.unpackbits(fps[clusters[c]], axis=1).sum(0, dtype=np.int64)
+        vote = np.packbits(bits >= len(clusters[c]) * 0.5)
+        if not np.array_equal(vote, cents[c]):
+            raise AssertionError(f"{what}: cluster {c}'s stored centroid is not its majority vote")
+    say(
+        f"phase 6 {what}: all {len(fps)} molecules once in {len(clusters)} clusters "
+        f"sorted by size (largest {int(sizes[0])}); 1000 sampled clusters meet the "
+        f"diameter criterion (min float64 iSIM {worst:.6f}); {len(pick)} sampled "
+        f"stored centroids equal their members' majority vote"
+    )
+    return {"n_clusters": len(clusters), "timings": timings, "config": config}
+
+
+def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda") -> dict:
+    r"""Phase 6: the port's command line from ``.npy`` files to pickles."""
+    import tempfile
+    from pathlib import Path
+
+    from bblean_tpu_torch.cli import main as cli_main
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+    from bblean_tpu_torch.ops import tile_search as ts
+
+    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    with tempfile.TemporaryDirectory(prefix="bb-smoke-") as tmp:
+        tmp = Path(tmp)
+        one = tmp / "one" / "fps.npy"
+        two = tmp / "two"
+        one.parent.mkdir()
+        two.mkdir()
+        t0 = time.perf_counter()
+        np.save(one, fps)
+        half = 3 * N_FPS // 5  # an uneven cut, inside a scan window
+        np.save(two / "part0.npy", fps[:half])
+        np.save(two / "part1.npy", fps[half:])
+        say(f"phase 6 input: 1M fps written to one file and to two ({half} + {N_FPS - half} rows) in {time.perf_counter() - t0:.1f} s")
+        staging = _staging_alone(one)
+        say(
+            f"phase 6 reading and staging alone (mapped file to the card in "
+            f"fit_packed's chunks, page cache warm): {staging:.3f} s"
+        )
+        runs = [
+            ("a: one file, t=0.3", one, 0.3, []),
+            ("b: two files, t=0.3, --refine-num 1", two, 0.3, ["--refine-num", "1"]),
+            ("c: one file, t=0.65", one, 0.65, []),
+        ]
+        for what, input_, thr, extra in runs:
+            out_dir = tmp / f"out-{what[0]}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            cli_main([
+                "run", str(input_), "-o", str(out_dir), "-t", str(thr),
+                "--engine", "batch", "--no-monitor-mem", "-V", *extra,
+            ])
+            wall = time.perf_counter() - t0
+            n_sorted, n_rows, n_plan = _counts()
+            launches["sorted"] += n_sorted
+            launches["rows"] += n_rows
+            launches["plan"] += n_plan
+            if min(n_sorted, n_rows, n_plan) <= 0 or ts.generic_launches:
+                raise AssertionError(
+                    f"phase 6 {what}: kernel launches {n_sorted} sorted + {n_rows} "
+                    f"per-row + {n_plan} plan, {ts.generic_launches} generic"
+                )
+            plain.check(f"the command line ({what})")
+            got = _check_run_dir(out_dir, fps, thr, what)
+            t = got["timings"]
+            peak = got["config"]["device_memory"]["peak_bytes_in_use"]
+            parts = ", ".join(f"{k} {v:.2f} s" for k, v in t.items() if k != "total")
+            say(
+                f"phase 6 {what}: {got['n_clusters']} clusters (resident fit of phase 4: "
+                f"{PORT_COUNTS[thr]}); total {t['total']:.2f} s of {wall:.2f} s in "
+                f"main(): {parts}; resident-input fit of phase 4 {fit_walls[thr]:.2f} s; "
+                f"kernel launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan "
+                f"(0 generic); peak {peak / 2**30:.2f} GiB allocated; device "
+                f"{got['config']['device']} {got['config']['accelerators']}"
+            )
+            if not extra and thr == 0.3:
+                rel = (got["n_clusters"] - PORT_COUNTS[thr]) / PORT_COUNTS[thr]
+                say(f"phase 6 a: count against the resident fit's: rel diff {rel:+.5%}")
+
+        small = tmp / "small.npy"
+        np.save(small, make_fake_fingerprints(20_000, N_FEATURES, seed=SEED))
+        files = {}
+        for device in ("cpu", "cuda"):
+            out_dir = tmp / f"out-d-{device}"
+            t0 = time.perf_counter()
+            cli_main([
+                "run", str(small), "-o", str(out_dir), "-t", "0.3", "--engine", "batch",
+                "--batch-size", "1024", "--no-monitor-mem", "-V", "--device", device,
+            ])
+            files[device] = [
+                (out_dir / name).read_bytes()
+                for name in ("clusters.pkl", "cluster-centroids-packed.pkl")
+            ]
+            say(f"phase 6 d: 20k fps through the command line on {device} in {time.perf_counter() - t0:.2f} s")
+        if files["cpu"] != files["cuda"]:
+            raise AssertionError("phase 6 d: CPU and CUDA runs wrote different pickles")
+        say("phase 6 d: clusters.pkl and cluster-centroids-packed.pkl byte-equal on CPU and CUDA")
     return launches
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _inertia(x: torch.Tensor, labels: np.ndarray, k: int) -> float:
+    r"""Sum of squared distances to the clusters' means, float64 on the card."""
+    lab = torch.from_numpy(labels).to(x.device)
+    x64 = x.to(torch.float64)
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float64, device=x.device)
+    sums.index_add_(0, lab, x64)
+    counts = torch.bincount(lab, minlength=k).clamp_min(1).to(torch.float64)
+    return float(((x64 - (sums / counts[:, None])[lab]) ** 2).sum())
+
+
+def phase_side_ops(packed_centroids: np.ndarray) -> None:
+    r"""Phase 7: popcount, Tanimoto, k-means and t-SNE on the card, each
+    against the same function on the CPU."""
+    from bblean_tpu_torch.ops import kmeans, popcount, tanimoto, tsne
+
+    rows, cents = packed_centroids[:8192], packed_centroids[8192 : 8192 + 1024]
+    row_bits, cent_bits = np.unpackbits(rows, axis=1), np.unpackbits(cents, axis=1)
+    checks = {
+        "popcount_device": lambda d: popcount.popcount_device(rows, device=d),
+        "popcount_rows": lambda d: popcount.popcount_rows(row_bits, device=d),
+        "tanimoto_packed_arr_vec": lambda d: tanimoto.tanimoto_packed_arr_vec(rows, cents[0], device=d),
+        "intersection_matmul": lambda d: tanimoto.intersection_matmul(row_bits, cent_bits, device=d),
+        "tanimoto_matmul": lambda d: tanimoto.tanimoto_matmul(row_bits, cent_bits, device=d),
+    }
+    for name, fn in checks.items():
+        fn("cuda")
+        got, wall = _timed(lambda: fn("cuda"))
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), fn("cpu")):
+            raise AssertionError(f"phase 7: {name} differs between CPU and CUDA")
+        say(f"phase 7 {name}: 8192 x 2048 bits (against 1024 centroids) equal on CPU and CUDA; {wall * 1e3:.3f} ms with the upload")
+
+    k = KMEANS_K
+    x = np.unpackbits(packed_centroids, axis=1).astype(np.float32)
+    labels, wall = _timed(lambda: kmeans.kmeans_fit_predict(x, k, seed=0))
+    again, wall2 = _timed(lambda: kmeans.kmeans_fit_predict(x, k, seed=0))
+    if not np.array_equal(labels, again):
+        raise AssertionError("phase 7: two k-means calls with one seed differ")
+    if labels.shape != (len(x),) or labels.min() < 0 or labels.max() >= k:
+        raise AssertionError("phase 7: k-means labels out of range")
+    dev_x = torch.from_numpy(x).to("cuda")
+    inertia = _inertia(dev_x, labels, k)
+    chance = _inertia(dev_x, np.random.default_rng(0).integers(0, k, len(x)), k)
+    say(
+        f"phase 7 k-means: {len(x)} x 2048 centroids into {k} clusters, 50 iterations: "
+        f"{wall:.2f} s and {wall2:.2f} s, two calls equal, "
+        f"{len(np.unique(labels))} clusters used, inertia {inertia:.6g} "
+        f"(random labels: {chance:.6g})"
+    )
+    if not inertia < chance:
+        raise AssertionError("phase 7: k-means is no better than random labels")
+    sub, k_sub = x[:10_000], 100
+    on_card = kmeans.kmeans_fit_predict(sub, k_sub, seed=0)
+    on_cpu, cpu_wall = _timed(lambda: kmeans.kmeans_fit_predict(sub, k_sub, seed=0, device="cpu"))
+    i_card = _inertia(dev_x[:10_000], on_card, k_sub)
+    i_cpu = _inertia(dev_x[:10_000], on_cpu, k_sub)
+    same = float((on_card == on_cpu).mean())
+    say(
+        f"phase 7 k-means CPU against CUDA (10,000 rows, {k_sub} clusters, one seed, the "
+        f"same draws): {same:.4%} of labels equal, inertia {i_card:.6g} on the card, "
+        f"{i_cpu:.6g} on the CPU ({cpu_wall:.2f} s)"
+    )
+    if abs(i_card - i_cpu) > 0.01 * i_cpu:
+        raise AssertionError("phase 7: k-means inertia differs by more than 1% between CPU and CUDA")
+    del dev_x
+
+    pts = x[:TSNE_ROWS]
+    emb, wall = _timed(lambda: tsne.tsne_embed(pts, n_iter=TSNE_ITERS))
+    if emb.shape != (TSNE_ROWS, 2) or not np.isfinite(emb).all():
+        raise AssertionError("phase 7: t-SNE output is not a finite (rows, 2) array")
+    say(
+        f"phase 7 t-SNE: {TSNE_ROWS} x 2048 rows, {TSNE_ITERS} iterations (host PCA init included): "
+        f"{wall:.2f} s, finite, spread {emb.std(0)[0]:.3f} x {emb.std(0)[1]:.3f}"
+    )
+    small = pts[:2000]
+    line = []
+    for n_iter in (5, 10, 20):
+        a = tsne.tsne_embed(small, n_iter=n_iter)
+        b = tsne.tsne_embed(small, n_iter=n_iter, device="cpu")
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        line.append(f"{n_iter} iterations {rel:.2e}")
+        if n_iter == 5 and rel > 1e-3:
+            raise AssertionError(f"phase 7: t-SNE after 5 iterations is {rel} of its scale off the CPU's")
+    say(
+        "phase 7 t-SNE CPU against CUDA (2,000 rows), largest difference over the "
+        "embedding's scale: " + ", ".join(line) + " (held to 1e-3 at 5; the descent "
+        "amplifies rounding, the faster the more rows, so 10 and 20 are information)"
+    )
 
 
 def _kernel_record(name, replaces, launches, phase) -> dict:

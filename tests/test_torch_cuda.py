@@ -1,8 +1,9 @@
 r"""The port on a CUDA card: the tile-search kernels (sorted and per-row
 launch modes) and the sort plan's item-table kernel against their plain
 versions, CPU and CUDA fits giving the
-same labels, and predict giving the same answer at aligned and unaligned
-batch sizes.
+same labels, predict giving the same answer at aligned and unaligned
+batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
+same functions on the CPU, and one command-line run on each device.
 
 Marked ``cuda``: each test skips unless a CUDA device is available.  This
 file imports no JAX, so that it also runs where JAX is not installed; on
@@ -243,3 +244,97 @@ def test_predict_aligned_and_unaligned_batches_agree(cuda) -> None:
     for slots, sims in out.values():
         np.testing.assert_array_equal(slots, ref_slots)
         np.testing.assert_array_equal(sims, ref_sims)
+
+
+# -- side ops and the command line: CPU against CUDA ----------------------------
+
+
+@pytest.mark.parametrize("n_features", [2048, 264, 100])
+def test_popcount_and_tanimoto_equal_on_cpu_and_cuda(cuda, n_features) -> None:
+    r"""Integers equal, f32 similarities bit for bit; numpy input goes to
+    the card by default, a tensor is used where it lies."""
+    from bblean_tpu_torch.ops import popcount, tanimoto
+
+    rng = np.random.default_rng(n_features)
+    bits = (rng.random((300, n_features)) < 0.35).astype(np.uint8)
+    cents = (rng.random((37, n_features)) < 0.35).astype(np.uint8)
+    packed = np.packbits(bits, axis=1)
+    calls = [
+        lambda **kw: popcount.popcount_device(packed, **kw),
+        lambda **kw: popcount.popcount_rows(bits, **kw),
+        lambda **kw: tanimoto.tanimoto_packed_arr_vec(packed, packed[3], **kw),
+        lambda **kw: tanimoto.intersection_matmul(bits, cents, **kw),
+        lambda **kw: tanimoto.tanimoto_matmul(bits, cents, **kw),
+    ]
+    for call in calls:
+        got = call()
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), call(device="cpu"))
+    on_card = tanimoto.tanimoto_matmul(
+        torch.from_numpy(bits).to(cuda), torch.from_numpy(cents).to(cuda)
+    )
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), calls[4](device="cpu"))
+
+
+def test_kmeans_on_cuda(cuda) -> None:
+    r"""One seed gives the same draws on both devices: on well-separated
+    blobs the labels are equal; two calls on the card are equal on any
+    data; TF32, if the process has it on, is kept out of the distances."""
+    from bblean_tpu_torch.ops.kmeans import kmeans_fit_predict
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(4, 64)) * 10.0
+    pts = np.concatenate([c + rng.normal(size=(50, 64)) for c in centers]).astype(np.float32)
+    labels = kmeans_fit_predict(pts, 4, seed=1)
+    np.testing.assert_array_equal(labels, kmeans_fit_predict(pts, 4, seed=1, device="cpu"))
+    noise = rng.random((3000, 96)).astype(np.float32)
+    first = kmeans_fit_predict(noise, 25, seed=2)
+    np.testing.assert_array_equal(first, kmeans_fit_predict(noise, 25, seed=2))
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        np.testing.assert_array_equal(first, kmeans_fit_predict(noise, 25, seed=2))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+
+
+def test_tsne_on_cuda(cuda) -> None:
+    r"""10 iterations agree with the CPU to 1e-3 of the embedding's scale
+    (the descent amplifies rounding after that); a full run is finite and
+    the same on two calls."""
+    from bblean_tpu_torch.ops.tsne import tsne_embed
+
+    pts = make_fake_fingerprints(300, n_features=256, seed=3, pack=False).astype(np.float32)
+    for knobs in (dict(), dict(multiscale=True, dof=0.8, exaggeration=1.5, early_iter=5)):
+        got = tsne_embed(pts, n_iter=10, perplexity=15.0, **knobs)
+        ref = tsne_embed(pts, n_iter=10, perplexity=15.0, device="cpu", **knobs)
+        assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+    full = tsne_embed(pts, n_iter=300, do_pca_init=False, seed=4)
+    assert full.shape == (300, 2) and np.isfinite(full).all()
+    np.testing.assert_array_equal(full, tsne_embed(pts, n_iter=300, do_pca_init=False, seed=4))
+
+
+def test_cli_run_writes_the_same_pickles_on_cpu_and_cuda(cuda, tmp_path) -> None:
+    import json
+
+    from bblean_tpu_torch.cli import main
+
+    path = tmp_path / "fps.npy"
+    np.save(path, make_fake_fingerprints(3000, seed=12620509540149709235))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        outs[device] = tmp_path / device
+        before = (ts.launches, ts.row_launches, ts.plan_launches)
+        main(["run", str(path), "-o", str(outs[device]), "-t", "0.3", "--engine", "batch",
+              "--batch-size", "256", "--refine-num", "1", "--no-monitor-mem", "-V",
+              "--device", device])
+        after = (ts.launches, ts.row_launches, ts.plan_launches)
+        assert (after > before) == (device == "cuda")
+    for name in ("clusters.pkl", "cluster-centroids-packed.pkl"):
+        assert (outs["cpu"] / name).read_bytes() == (outs["cuda"] / name).read_bytes()
+    config = json.loads((outs["cuda"] / "config.json").read_text())
+    assert config["device"] == "cuda" and config["accelerators"]
+    assert config["device_memory"]["peak_bytes_in_use"] > 0
+    assert "device_memory" not in json.loads((outs["cpu"] / "config.json").read_text())

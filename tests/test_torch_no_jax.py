@@ -1,6 +1,6 @@
 r"""The PyTorch port imports no JAX, and neither it nor ``chip_smoke.py``,
-``chip_profile.py`` and ``chip_ab.py`` import anything of the JAX package
-``bblean_tpu``.
+``chip_profile.py``, ``chip_ab.py`` and ``bench_cuda.py`` import anything of
+the JAX package ``bblean_tpu``.
 
 The import check runs in a subprocess: ``tests/conftest.py`` imports jax
 into the test process itself.  ``chip_smoke.py`` imports the port inside
@@ -25,7 +25,13 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch, bblean_tpu_torch.engine.batch\n"
         "import bblean_tpu_torch.engine.state_io, bblean_tpu_torch._build\n"
         "import bblean_tpu_torch.ops.tile_search, bblean_tpu_torch.fingerprints\n"
-        "import chip_smoke, chip_profile, chip_ab\n"
+        "import bblean_tpu_torch._timer, bblean_tpu_torch._config\n"
+        "import bblean_tpu_torch._console, bblean_tpu_torch._memory\n"
+        "import bblean_tpu_torch._device, bblean_tpu_torch.utils, bblean_tpu_torch.cli\n"
+        "import bblean_tpu_torch.ops, bblean_tpu_torch.ops.popcount\n"
+        "import bblean_tpu_torch.ops.tanimoto, bblean_tpu_torch.ops.kmeans\n"
+        "import bblean_tpu_torch.ops.tsne\n"
+        "import chip_smoke, chip_profile, chip_ab, bench_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'bblean_tpu' or m.startswith('bblean_tpu.'))\n"
         "assert not bad, bad\n"
@@ -53,7 +59,10 @@ def _imported_modules(path: Path) -> list[str]:
 
 @pytest.mark.parametrize(
     "path",
-    [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_ab.py", *PORT_SOURCES],
+    [
+        ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_ab.py",
+        ROOT / "bench_cuda.py", *PORT_SOURCES,
+    ],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_nothing_of_the_jax_package(path) -> None:
@@ -93,3 +102,146 @@ def test_copied_host_helpers_equal_the_jax_package_ones(tmp_path) -> None:
         tfp._get_fingerprints_from_file_seq(files, idxs),
         jfp._get_fingerprints_from_file_seq(files, idxs),
     )
+
+
+def test_copied_host_modules_equal_the_jax_package_ones(tmp_path) -> None:
+    r"""``utils``, ``_timer``, ``_config`` and the fingerprint-file helpers
+    are copies: the same values, files and defaults as the originals."""
+    import dataclasses
+
+    from bblean_tpu import _config as jcfg, _timer as jtimer, fingerprints as jfp, utils as jutils
+    from bblean_tpu_torch import _config as tcfg, _timer as ttimer, fingerprints as tfp, utils as tutils
+
+    for nmax in (0, 1, 255, 256, 65_535, 65_536, 2**32 - 1, 2**32, 2**64 - 1):
+        assert tutils.min_safe_uint(nmax) == jutils.min_safe_uint(nmax)
+    with pytest.raises(ValueError):
+        tutils.min_safe_uint(2**64)
+    for n in (1, 3, 7, 10):
+        assert list(tutils.batched(range(10), n)) == list(jutils.batched(range(10), n))
+    with pytest.raises(ValueError):
+        list(tutils.batched(range(3), 0))
+    assert tutils._cpu_name() == jutils._cpu_name()
+    assert tutils._num_avail_cpus() == jutils._num_avail_cpus()
+
+    bits = tfp.make_fake_fingerprints(40, n_features=104, seed=3, pack=False)[:, :100]
+    packed = tfp.pack_fingerprints(bits)
+    np.testing.assert_array_equal(packed, jfp.pack_fingerprints(bits))
+    for nf in (None, 100):
+        np.testing.assert_array_equal(
+            tfp.unpack_fingerprints(packed, nf), jfp.unpack_fingerprints(packed, nf)
+        )
+    files = []
+    for i, n in enumerate((40, 0, 25)):
+        files.append(tmp_path / f"f{i}.npy")
+        np.save(files[-1], packed[:n])
+        assert tfp._get_fps_file_num(files[-1]) == jfp._get_fps_file_num(files[-1]) == n
+    seq_t, seq_j = tfp._FingerprintFileSequence(files), jfp._FingerprintFileSequence(files)
+    assert seq_t.shape == seq_j.shape == (40, 13)
+    np.testing.assert_array_equal(seq_t[[0, 39, 40, 64]], seq_j[[0, 39, 40, 64]])
+    with pytest.raises(ValueError):
+        tfp._FingerprintFileSequence([])
+
+    assert dataclasses.asdict(tcfg.DEFAULTS) == dataclasses.asdict(jcfg.DEFAULTS)
+    assert tcfg.TSNE_SEED == jcfg.TSNE_SEED
+    dumps = []
+    for mod in (ttimer, jtimer):
+        timer = mod.Timer()
+        timer.init_timing("a")
+        timer.end_timing("a")
+        timer.timings["a"] = 1.5
+        path = tmp_path / f"{mod.__name__}.json"
+        timer.dump(path)
+        dumps.append(path.read_text())
+    assert dumps[0] == dumps[1]
+
+
+def test_host_memory_reads_agree_with_and_without_psutil(monkeypatch) -> None:
+    r"""``system_mem_gib`` and the RSS monitor read ``/proc`` where psutil is
+    not installed; both readings of this process agree with psutil's."""
+    import os
+    import sys
+
+    import psutil
+
+    from bblean_tpu_torch import _memory
+
+    total, avail = _memory.system_mem_gib()
+    rss = _memory._psutil_tree_rss(psutil, os.getpid())
+    monkeypatch.setitem(sys.modules, "psutil", None)  # import psutil now fails
+    total_proc, avail_proc = _memory.system_mem_gib()
+    assert total_proc == pytest.approx(total, rel=1e-3) and total_proc > 0
+    assert avail_proc == pytest.approx(avail, rel=0.2)
+    rss_proc = _memory._proc_tree_rss(os.getpid())
+    assert rss_proc == pytest.approx(rss, rel=0.2) and rss_proc > 0
+    assert _memory._proc_tree_rss(2**22 + 12345) is None  # no such process
+    assert _memory.device_memory_stats("cpu") is None
+
+
+@pytest.mark.parametrize("with_psutil", [True, False])
+def test_rss_monitor_writes_its_files(tmp_path, with_psutil) -> None:
+    r"""The monitor's loop (run in a thread here, on a child process that
+    ends) writes ``monitor-rss.csv`` and ``max-rss.txt`` and stops when the
+    process it watches is gone."""
+    import subprocess
+    import sys
+    import threading
+    import unittest.mock
+
+    from bblean_tpu_torch import _memory
+
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(1.0)"])
+    hide = {} if with_psutil else {"psutil": None}
+    with unittest.mock.patch.dict(sys.modules, hide):
+        watcher = threading.Thread(
+            target=_memory._monitor_rss, args=(tmp_path, child.pid, 0.05), daemon=True
+        )
+        watcher.start()
+        child.wait(timeout=30)
+        watcher.join(timeout=30)
+    assert not watcher.is_alive()
+    lines = (tmp_path / "monitor-rss.csv").read_text().splitlines()
+    assert lines[0] == "time_s,rss_gib" and len(lines) > 2
+    assert (tmp_path / "max-rss.txt").read_text().endswith(" GiB\n")
+
+
+def test_console_prints_plainly_without_rich(capsys) -> None:
+    r"""Where rich is missing the console prints the same text without the
+    style tags."""
+    from bblean_tpu_torch import _console
+
+    class Plain(_console._PlainConsole):
+        print_config = _console.BBConsole.print_config
+        print_banner = _console.BBConsole.print_banner
+
+    console = Plain()
+    console.print_banner()
+    console.print_config({"threshold": 0.3})
+    with console.status("[italic]working[/italic]", spinner="dots"):
+        console.print("    - [green]Valid fingerprint file[/green]")
+    out = capsys.readouterr().out
+    assert "Config:" in out and "    - threshold: 0.3" in out
+    assert "    - Valid fingerprint file" in out
+    assert "[bold" not in out and "[/" not in out and "PyTorch + CUDA" in out
+    silent = _console.get_console(silent=True)
+    silent.print_banner()
+    silent.print_config({"a": 1})
+    silent.print_peak_hbm("cpu")
+    silent.print_peak_mem(".")
+    assert capsys.readouterr().out == ""
+    assert isinstance(_console.get_console(), _console.BBConsole)
+    _console.get_console().print_peak_hbm("cpu")  # no device, no line
+    assert capsys.readouterr().out == ""
+
+
+def test_bench_cuda_refuses_to_run_without_a_card() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is available")
+    proc = subprocess.run(
+        [sys.executable, "bench_cuda.py"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no result" in proc.stderr
