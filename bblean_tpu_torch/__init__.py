@@ -1,9 +1,12 @@
-r"""bblean-tpu on PyTorch: the batch engine (``BatchTree``) for CPU and CUDA.
+r"""bblean-tpu on PyTorch: the batch engine (``BatchTree``) and the sharded
+engine (``parallel.ShardedForest``) for CPU and CUDA.
 
 A port of ``bblean_tpu``'s batched BitBirch engine from JAX to PyTorch:
 fit, buffer insertion, refinement, reclustering, extraction and predict,
-its command line (``cli.py``: ``run --engine batch`` and the fingerprint
-file commands) and the side-path ops (``ops/popcount.py``,
+the sharded engine on top of it (``parallel/``: one forest per shard of a
+mesh of devices, merged pairwise), their command line (``cli.py``: ``run
+--engine batch``, ``run --engine sharded`` and the fingerprint file
+commands) and the side-path ops (``ops/popcount.py``,
 ``ops/tanimoto.py``, ``ops/kmeans.py``, ``ops/tsne.py``).
 On an NVIDIA GPU the in-group tile search runs CUDA kernels written for
 Hopper (``csrc/tile_search.cu``, built with ``nvcc`` at first use); on the

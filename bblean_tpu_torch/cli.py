@@ -2,7 +2,8 @@ r"""Command-line interface of the PyTorch + CUDA port.
 
 The part of ``bblean_tpu/cli.py`` that the port covers so far, under the
 same command and option names: clustering with the batched engine
-(``run --engine batch``) and fingerprint file management (``fps-info``,
+(``run --engine batch``) or sharded over every visible device (``run
+--engine sharded``), and fingerprint file management (``fps-info``,
 ``fps-split``, ``fps-shuffle``, ``fps-merge``).  Run-dir conventions are
 identical: a random 8-hex-digit directory under ``bb_run_outputs/``
 containing ``clusters.pkl``, ``cluster-centroids-packed.pkl``,
@@ -11,9 +12,10 @@ containing ``clusters.pkl``, ``cluster-centroids-packed.pkl``,
 
 One option is the port's own: ``--device`` (default ``cuda``).  A run
 without a CUDA device raises unless ``--device cpu`` asks for the plain
-PyTorch path.  ``--engine exact`` and ``--engine sharded`` are refused by
-name until those engines are ported; ``multiround``, ``fps-from-smiles``,
-``summary`` and the plots are not ported yet.
+PyTorch path (``--engine sharded --device cpu`` runs one CPU shard).
+``--engine exact`` is refused by name until that engine is ported;
+``multiround``, ``fps-from-smiles``, ``summary`` and the plots are not
+ported yet.
 
 Parsed with ``argparse``.  :func:`main` takes the argument list (default
 ``sys.argv[1:]``); a usage error exits with code 2 and a :class:`CliError`
@@ -94,10 +96,10 @@ def _run(args: argparse.Namespace) -> None:
     from bblean_tpu_torch._memory import launch_monitor_rss_daemon
     from bblean_tpu_torch.fingerprints import _get_fps_file_num
 
-    if args.engine != "batch":
+    if args.engine == "exact":
         args.parser.error(
-            f"--engine {args.engine} is not yet ported to PyTorch + CUDA; "
-            "only --engine batch is"
+            "--engine exact is not yet ported to PyTorch + CUDA; "
+            "--engine batch and --engine sharded are"
         )
     device = require_device(args.device)
 
@@ -139,19 +141,26 @@ def _run(args: argparse.Namespace) -> None:
 
     timer = Timer()
     timer.init_timing("total")
-    _run_batch_engine(
-        input_files, out_dir, config, console, timer, device=device,
+    common = dict(
+        device=device,
         threshold=args.threshold, merge_criterion=args.merge_criterion,
         tolerance=args.tolerance, n_features=args.n_features,
         input_is_packed=args.input_is_packed, max_fps=args.max_fps,
         save_centroids=args.save_centroids,
-        batch_size=args.engine_batch_size, fanout=args.engine_fanout,
+        batch_size=args.engine_batch_size,
         refine_num=refine_num, refine_rounds=refine_rounds,
         refine_merge_criterion=args.refine_merge_criterion,
         refine_threshold_change=args.refine_threshold_change,
         recluster_rounds=args.recluster_rounds,
         recluster_shuffle=args.recluster_shuffle,
     )
+    if args.engine == "sharded":
+        _run_sharded_engine(input_files, out_dir, config, console, timer, **common)
+    else:
+        _run_batch_engine(
+            input_files, out_dir, config, console, timer,
+            fanout=args.engine_fanout, **common,
+        )
     timer.end_timing("total", console, indent=False)
     console.print_peak_mem(out_dir)
     console.print_peak_hbm(device)
@@ -285,6 +294,133 @@ def _run_batch_engine(
     config["n_clusters"] = int(len(sizes))
 
 
+def _run_sharded_engine(
+    input_files, out_dir, config, console, timer, *, device, threshold,
+    merge_criterion, tolerance, n_features, input_is_packed, max_fps,
+    save_centroids, batch_size=8192, refine_num=0, refine_rounds=0,
+    refine_merge_criterion=None, refine_threshold_change=0.0,
+    recluster_rounds=0, recluster_shuffle=False,
+) -> None:
+    r"""The sharded engine: data-parallel over every visible device of the
+    kind ``device`` names (one CPU shard with ``--device cpu``).
+
+    The merge-reduction rounds use the refine criterion and threshold-change
+    options, mirroring multiround's midsection parameters.  Refinement
+    (``--refine-num``) explodes the largest merged clusters into singleton
+    rows re-sharded over the mesh and re-fits + re-merges.  ``timings.json``
+    gets the parts ``fit`` and ``merge``.
+    """
+    from bblean_tpu_torch.fingerprints import _get_fps_file_num, pack_fingerprints
+    from bblean_tpu_torch.parallel import ShardedForest, get_mesh
+
+    mesh = get_mesh(device=device)
+    console.print(f"Sharding over {mesh.size} device(s)")
+
+    total_rows = 0
+    for file in input_files:
+        n = _get_fps_file_num(file)
+        total_rows += min(n, max_fps) if max_fps is not None else n
+
+    # Clamp the batch to the input: every step's tables are batch-shaped,
+    # so an 8192-row batch on a 600-row input pays for slots that never
+    # hold a row.  One window per shard still covers the whole input.
+    if total_rows:
+        per_dev = -(-total_rows // mesh.size)
+        batch_size = max(64, min(batch_size, 1 << (per_dev - 1).bit_length()))
+
+    forest: ShardedForest | None = None
+    timer.init_timing("fit")
+    with console.status("[italic]BitBirching (sharded)...[/italic]", spinner="dots"):
+        for file in input_files:
+            # Files stream through the forest: past the resident budget,
+            # windows are read from the mapping a chunk at a time
+            fps = np.load(file, mmap_mode="r")[:max_fps]
+            if not input_is_packed:
+                fps = pack_fingerprints(np.asarray(fps, dtype=np.uint8))
+            if forest is None:
+                feats = n_features if n_features is not None else fps.shape[1] * 8
+                forest = ShardedForest(
+                    feats,
+                    mesh,
+                    threshold=threshold,
+                    merge_criterion=merge_criterion,
+                    tolerance=tolerance,
+                    merge_criterion_merge=refine_merge_criterion,
+                    merge_threshold_change=refine_threshold_change,
+                    batch_size=batch_size,
+                    # Shrink the scan window so small inputs do not pay the
+                    # full 16-batch window's group-table headroom (same
+                    # clamp as parallel.sharded_fit)
+                    scan_batches=max(
+                        1, min(16, -(-total_rows // (mesh.size * batch_size)))
+                    ),
+                    # Sized to the input (capacity grows on demand per merge
+                    # round): every capacity-shaped device op pays for the
+                    # table slots, used or not
+                    initial_capacity=max(
+                        2 * batch_size + 2,
+                        min(
+                            total_rows + batch_size + 1,
+                            (total_rows // mesh.size) * 2 + 2 * batch_size,
+                        ),
+                    ),
+                )
+            forest.fit_packed(fps)
+    assert forest is not None
+    timer.end_timing("fit", console)
+    timer.init_timing("merge")
+    with console.status("[italic]Merging shards...[/italic]", spinner="dots"):
+        forest.merge()
+    timer.end_timing("merge", console)
+
+    for r in range(refine_rounds):
+        with console.status(
+            f"[italic]Refinement, round {r + 1} (sharded)...[/italic]",
+            spinner="dots",
+        ):
+            forest.refine_inplace(
+                input_files if len(input_files) > 1 else input_files[0],
+                input_is_packed=input_is_packed,
+                n_largest=refine_num,
+                threshold=threshold + refine_threshold_change,
+                merge_criterion=refine_merge_criterion,
+                tolerance=tolerance,
+                # The refined threshold already carries the delta; zero the
+                # stored fit->merge change so the reduction rounds run at
+                # threshold + change, not threshold + 2 * change
+                merge_threshold_change=0.0,
+            )
+    for r in range(recluster_rounds):
+        with console.status(
+            f"[italic]Reclustering, round {r + 1} (sharded)...[/italic]",
+            spinner="dots",
+        ):
+            forest.recluster_inplace(shuffle=recluster_shuffle)
+
+    labels = forest.labels()
+    sizes = forest.cluster_sizes()
+    num_clusters = forest.num_clusters
+    # Clusters sorted by size desc (stable), like the other engines
+    order = np.argsort(-sizes, kind="stable")
+    sort_idx = np.argsort(labels, kind="stable")
+    bounds = np.searchsorted(labels[sort_idx], np.arange(num_clusters + 1)).tolist()
+    flat = sort_idx.tolist()
+    clusters = [flat[bounds[i] : bounds[i + 1]] for i in order]
+    with open(out_dir / "clusters.pkl", "wb") as f:
+        pickle.dump(clusters, f)
+    if save_centroids:
+        ls = forest.linear_sums()
+        cent = np.where(
+            (sizes > 1)[:, None], ls >= (sizes[:, None] * 0.5), np.clip(ls, 0, 1)
+        ).astype(np.uint8)
+        packed = np.packbits(cent, axis=-1)
+        with open(out_dir / "cluster-centroids-packed.pkl", "wb") as f:
+            pickle.dump([packed[i] for i in order], f)
+    config["n_clusters"] = int(num_clusters)
+    config["n_devices"] = mesh.size
+    config["device_table_bytes_per_device"] = forest.state_bytes_per_device()
+
+
 # -- fingerprint file commands --------------------------------------------------
 
 
@@ -376,9 +512,9 @@ def _build_parser() -> argparse.ArgumentParser:
     _flag_pair(p, ["--recluster-shuffle"], ["--no-recluster-shuffle"], "recluster_shuffle", True, help=hidden)
     p.add_argument("--n-features", type=int, default=None, help="Fingerprint bit count (needed for packed inputs not a multiple of 8)")
     _flag_pair(p, ["--packed-input"], ["--unpacked-input"], "input_is_packed", True)
-    p.add_argument("--engine", choices=["exact", "batch", "sharded"], default="exact", help="exact: reference-identical labels on host; batch: the batched engine on the device; sharded: over every visible device (only batch is ported so far)")
-    p.add_argument("--device", default="cuda", help="Where the batched engine runs: a CUDA device, or cpu for the plain PyTorch path")
-    p.add_argument("--batch-size", dest="engine_batch_size", type=int, default=8192, help="[batch engine] rows per device step")
+    p.add_argument("--engine", choices=["exact", "batch", "sharded"], default="exact", help="exact: reference-identical labels on host (not ported yet); batch: the batched engine on the device; sharded: one batched forest per visible device, merged pairwise")
+    p.add_argument("--device", default="cuda", help="Where the engine runs: a CUDA device (sharded: every visible one), or cpu for the plain PyTorch path")
+    p.add_argument("--batch-size", dest="engine_batch_size", type=int, default=8192, help="[batch, sharded engines] rows per device step")
     p.add_argument("--fanout", dest="engine_fanout", type=int, default=None, help="[batch engine] clusters per group before a split (default: auto-tuned from the input size)")
     _flag_pair(p, ["--monitor-mem"], ["--no-monitor-mem"], "monitor_rss", True)
     p.add_argument("--monitor-mem-seconds", dest="monitor_rss_interval_s", type=float, default=1.0, help=hidden)

@@ -6,7 +6,8 @@ fingerprints at threshold 0.30** (the reference CLI's default threshold, the
 merge-heavy regime) through ``BatchTree.fit_packed`` with the input resident
 on the card, best of two fresh-tree runs after a warm-up.  The same JSON
 line also reports the t=0.65 (singleton-heavy) regime and a re-run of the
-primary with every host CPU burned by spinner processes.
+primary with every host CPU burned by spinner processes, and the sharded
+engine (``ShardedForest`` fit + merge) on a one-card mesh.
 
 Baseline anchor: the reference's own speed-regression cap for its C++ path,
 10k fps in < 0.9 s on CI, i.e. ~11.1k fps/s single-core (see BASELINE.md).
@@ -70,6 +71,47 @@ def _timed_fit(dev_fps, threshold: float, capacity: int, ls_capacity: int):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     del tree
+    return N_FPS / dt, dt, num
+
+
+def _timed_sharded_fit(dev_fps, threshold: float):
+    r"""One warmed fresh-forest ``ShardedForest`` fit + merge on a mesh of
+    the first card: the whole window-dispatch and merge control plane, with
+    nothing to exchange.  The input is on the card before the clock starts,
+    as in the ``BatchTree`` primary."""
+    import torch
+
+    from bblean_tpu_torch.parallel import ShardedForest, get_mesh
+
+    mesh = get_mesh(1, device="cuda")
+
+    def build():
+        return ShardedForest(
+            N_FEATURES,
+            mesh,
+            threshold=threshold,
+            batch_size=8192,
+            initial_capacity=1 << 19,
+            ls_capacity=1 << 18,
+        )
+
+    # Full-input warm fit: every step the timed run takes, at its table
+    # shapes, so that the caching allocator holds their working set
+    warm = build()
+    warm.fit_packed(dev_fps)
+    _ = warm.num_clusters
+    del warm
+
+    forest = build()
+    forest.warm_programs(dev_fps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forest.fit_packed(dev_fps)
+    forest.merge()
+    num = forest.num_clusters  # device sync
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del forest
     return N_FPS / dt, dt, num
 
 
@@ -160,6 +202,10 @@ def main() -> None:
     with _CpuHog():
         rate03c, dt03c, _num03c = _timed_fit(dev_fps, **settings03)
 
+    # The engine that runs on N cards, on one: ShardedForest on a one-card
+    # mesh (the full window-dispatch + merge control plane)
+    rate_sh, dt_sh, num_sh = _timed_sharded_fit(dev_fps, threshold=0.30)
+
     out = _primary(rate03, dt03, num03, card)
     out.update({
         "t0.3_contended_fps_per_s": round(rate03c, 1),
@@ -169,6 +215,10 @@ def main() -> None:
         "t0.65_vs_baseline": round(rate65 / BASELINE_FPS_PER_S, 2),
         "t0.65_wall_s": round(dt65, 2),
         "t0.65_n_clusters": int(num65),
+        "sharded_1dev_t0.3_fps_per_s": round(rate_sh, 1),
+        "sharded_1dev_t0.3_vs_baseline": round(rate_sh / BASELINE_FPS_PER_S, 2),
+        "sharded_1dev_t0.3_wall_s": round(dt_sh, 2),
+        "sharded_1dev_t0.3_n_clusters": int(num_sh),
         "hbm_peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
     })
     print(json.dumps(out), flush=True)

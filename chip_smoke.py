@@ -58,7 +58,22 @@ as the phase ends:
    (equal), k-means of 100,000 unpacked centroids of the 1M tree into 1,000
    clusters (two calls equal; CPU against CUDA on 10,000 rows), t-SNE of
    5,000 of them over 750 iterations (finite; 5 iterations against the CPU
-   on 2,000 rows to 1e-3 of the embedding's scale, 10 and 20 printed).
+   on 2,000 rows to 1e-3 of the embedding's scale, 10 and 20 printed);
+8. the sharded engine, every shard on ``cuda:0``: (a) one shard, the 1M
+   fingerprints at t = 0.3 at the bench's settings, fit + merge; (b) eight
+   shards at t = 0.3 and t = 0.65, twice each: fit wall, merge wall and its
+   share, per merge round the received groups appended (far) and gated to
+   the row-level path (close), the rows inserted, retries and growths, the
+   kernels' launches in the fit and in the merge (none generic), peak
+   memory; every molecule labelled once, sizes equal to the label
+   histogram, 200 sampled linear sums equal to their members' bits, 1,000
+   sampled clusters meeting the diameter criterion at the merge threshold,
+   both runs' labels identical; (c) 20,000 fingerprints on four CPU shards
+   and four shards of the card give identical labels; (d) inside the merges
+   of (b), sampled launches of both tile-search front ends are held
+   bit-equal to the plain version on the merge's own inputs; (e) the
+   command line with ``--engine sharded`` on the 1M-row file.
+   ``python3 chip_smoke.py --only sharded`` runs phases 1 and 8 alone.
 
 Each main-path run (each fit, each predict, the refine, each command-line
 run) counts the kernels' launches from zero and must launch the kernels it
@@ -106,6 +121,10 @@ KMEANS_ROWS = 100_000
 KMEANS_K = 1000
 TSNE_ROWS = 5000
 TSNE_ITERS = 750
+# Phase 8: cluster counts of the sharded engine on one card (the port's own,
+# deterministic): one shard at the bench's settings, the command line's one
+# shard, and eight shards of cuda:0 per threshold
+SHARDED_COUNTS = {"one": 397_552, "cli": 397_552, 0.3: 404_913, 0.65: 976_372}
 FIT_SETTINGS = {
     0.3: dict(initial_capacity=1 << 19, ls_capacity=1 << 18),
     0.65: dict(initial_capacity=1 << 21, ls_capacity=1 << 18),
@@ -534,8 +553,10 @@ def _members_by_cluster(labels: np.ndarray, n_clusters: int):
 
 
 def _check_assigned_once(tree) -> tuple[np.ndarray, np.ndarray]:
-    labels = tree.assignments()
-    sizes = tree.cluster_sizes()
+    return _check_labels(tree.assignments(), tree.cluster_sizes())
+
+
+def _check_labels(labels, sizes) -> tuple[np.ndarray, np.ndarray]:
     if labels.shape != (N_FPS,) or (labels < 0).any():
         raise AssertionError("not every molecule was assigned")
     if int(sizes.sum()) != N_FPS:
@@ -665,9 +686,12 @@ def phase_full_size() -> dict:
         del kept
         torch.cuda.empty_cache()
         phase6 = phase_cli(fps, fit_walls, plain)
+        phase8 = phase_sharded(fps, plain)
     phase_side_ops(centroids)
     return {
-        "launches": {k: launches[k] + phase5[k] + phase6[k] for k in launches},
+        "launches": {
+            k: launches[k] + phase5[k] + phase6[k] + phase8[k] for k in launches
+        },
     }
 
 
@@ -825,7 +849,7 @@ def _staging_alone(path, batch: int = 8192) -> float:
     return time.perf_counter() - t0
 
 
-def _check_run_dir(out_dir, fps: np.ndarray, threshold: float, what: str) -> dict:
+def _check_run_dir(out_dir, fps: np.ndarray, threshold: float, what: str, phase: int = 6) -> dict:
     r"""The run directory's invariants: every molecule id once, sizes
     non-increasing, as many clusters as ``config.json`` says, 1,000 sampled
     clusters meeting the diameter criterion in float64, 200 sampled stored
@@ -872,7 +896,7 @@ def _check_run_dir(out_dir, fps: np.ndarray, threshold: float, what: str) -> dic
         if not np.array_equal(vote, cents[c]):
             raise AssertionError(f"{what}: cluster {c}'s stored centroid is not its majority vote")
     say(
-        f"phase 6 {what}: all {len(fps)} molecules once in {len(clusters)} clusters "
+        f"phase {phase} {what}: all {len(fps)} molecules once in {len(clusters)} clusters "
         f"sorted by size (largest {int(sizes[0])}); 1000 sampled clusters meet the "
         f"diameter criterion (min float64 iSIM {worst:.6f}); {len(pick)} sampled "
         f"stored centroids equal their members' majority vote"
@@ -967,6 +991,291 @@ def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda") -> dict:
         if files["cpu"] != files["cuda"]:
             raise AssertionError("phase 6 d: CPU and CUDA runs wrote different pickles")
         say("phase 6 d: clusters.pkl and cluster-centroids-packed.pkl byte-equal on CPU and CUDA")
+    return launches
+
+
+class _MergeSearchCheck:
+    r"""While installed, holds sampled launches of both tile-search front
+    ends, as the engine's step makes them, bit-equal to the plain version on
+    the same inputs (the first three launches of each front end after
+    ``arm()`` and every 25th after).  The wrapper's own launch is the main
+    path's; the plain version runs beside it and launches no kernel."""
+
+    def __init__(self, plain: "_PlainOnCuda") -> None:
+        from bblean_tpu_torch.engine import batch as engine
+
+        self.engine, self.plain = engine, plain.plain
+        self.planned, self.rows = engine.tile_search_planned, engine.tile_search_rows
+        self.armed = False
+        self.seen = {"sorted": 0, "rows": 0}
+        self.checked = {"sorted": 0, "rows": 0}
+        self.work = {"sorted": [], "rows": []}
+
+    def arm(self, on: bool) -> None:
+        self.armed = on
+        self.seen = {"sorted": 0, "rows": 0}
+
+    def _due(self, kind: str) -> bool:
+        self.seen[kind] += 1
+        return self.armed and (self.seen[kind] <= 3 or self.seen[kind] % 25 == 0)
+
+    def _hold(self, kind, got, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending):
+        ref = self.plain(row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
+        _check_equal(got, ref, f"a {kind} launch inside the merge")
+        self.checked[kind] += 1
+        b = _bound(row_group, pending, t_pk.shape)
+        self.work[kind].append((b["pending"], b["tiles"], row_pk.shape[0]))
+
+    def _planned(self, srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items):
+        got = self.planned(srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items)
+        if self._due("sorted"):
+            # Undo the plan's sort: the plain version takes rows in place
+            row_pk, row_pop = torch.empty_like(srows), torch.empty_like(spops)
+            row_group = torch.empty_like(skey)
+            row_pk[order], row_pop[order], row_group[order] = srows, spops, skey
+            self._hold("sorted", got, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
+        return got
+
+    def _rows(self, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending):
+        got = self.rows(row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
+        if self._due("rows"):
+            self._hold("rows", got, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
+        return got
+
+    def __enter__(self):
+        self.engine.tile_search_planned = self._planned
+        self.engine.tile_search_rows = self._rows
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.engine.tile_search_planned = self.planned
+        self.engine.tile_search_rows = self.rows
+
+
+def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
+    r"""One sharded fit + merge on the card: the forest, the walls and the
+    kernels' launches of the fit and of the merge (counted from zero)."""
+    from bblean_tpu_torch.engine import batch as engine
+    from bblean_tpu_torch.ops import tile_search as ts
+    from bblean_tpu_torch.parallel import ShardedForest
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = engine.host_syncs
+    _reset_counts()
+    t0 = time.perf_counter()
+    forest = ShardedForest(N_FEATURES, mesh, threshold=threshold, batch_size=8192, **kw)
+    forest.fit_packed(dev_fps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fit_counts = _counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    if check is not None:
+        check.arm(True)
+    forest.merge()
+    ncl = forest.num_clusters
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if check is not None:
+        check.arm(False)
+    merge_counts = tuple(b - a for a, b in zip(fit_counts, _counts()))
+    if ts.generic_launches:
+        raise AssertionError(f"the sharded run took the generic path {ts.generic_launches} times")
+    return forest, {
+        "fit_s": t1 - t0, "merge_s": t2 - t1, "n_clusters": ncl,
+        "fit_launches": fit_counts, "merge_launches": merge_counts,
+        "syncs": engine.host_syncs - syncs0, "fit_peak": fit_peak,
+        "peak": torch.cuda.max_memory_allocated(),
+    }
+
+
+def _launch_text(counts) -> str:
+    return f"{counts[0]} sorted + {counts[1]} per-row + {counts[2]} plan"
+
+
+def _check_forest(forest, fps: np.ndarray, what: str) -> np.ndarray:
+    r"""Phase 8's gates on a merged forest; returns the labels."""
+    from bblean_tpu_torch.engine import batch as engine
+
+    labels, sizes = _check_labels(forest.labels(), forest.cluster_sizes())
+    members_of = _members_by_cluster(labels, len(sizes))
+    multi = np.flatnonzero(sizes >= 2)
+    pick = np.random.default_rng(2).choice(multi, size=min(200, len(multi)), replace=False)
+    state = forest.states[0]
+    ls = engine._cluster_ls_of(
+        state, torch.from_numpy(pick).to(state.n.device), N_FEATURES
+    ).cpu().numpy()
+    for row, c in zip(ls, pick):
+        bits = np.unpackbits(fps[members_of(c)], axis=1).sum(0, dtype=np.int64)
+        if not np.array_equal(bits, row):
+            raise AssertionError(f"{what}: cluster {c}'s linear sum is not its members' bits")
+    n, worst = _check_cohesion(labels, sizes, fps, forest.merge_threshold)
+    say(
+        f"phase 8 {what}: all {N_FPS} molecules labelled once, sizes equal the label "
+        f"histogram; {len(pick)} sampled linear sums equal their members' bits; {n} "
+        f"sampled multi-member clusters meet the diameter criterion at the merge "
+        f"threshold (min float64 iSIM {worst:.6f})"
+    )
+    return labels
+
+
+def _held_count(key, ncl: int, what: str) -> None:
+    if ncl != SHARDED_COUNTS[key]:
+        raise AssertionError(f"{what}: {ncl} clusters, not the port's {SHARDED_COUNTS[key]}")
+
+
+def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
+    r"""Phase 8: the sharded engine with every shard on ``cuda:0``."""
+    import tempfile
+    from pathlib import Path
+
+    from bblean_tpu_torch.cli import main as cli_main
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+    from bblean_tpu_torch.ops import tile_search as ts
+    from bblean_tpu_torch.parallel import get_mesh, sharded_fit
+
+    launches = {"sorted": 0, "rows": 0, "plan": 0}
+
+    def add(counts) -> None:
+        for k, c in zip(("sorted", "rows", "plan"), counts):
+            launches[k] += c
+
+    dev_fps = torch.from_numpy(fps).to("cuda:0")
+
+    # (a) one shard at the bench's settings
+    forest, r = _sharded_run(
+        dev_fps, get_mesh(devices=["cuda:0"]), 0.3,
+        initial_capacity=1 << 19, ls_capacity=1 << 18,
+    )
+    add(r["fit_launches"])
+    add(r["merge_launches"])
+    plain.check("the one-shard fit")
+    wall = r["fit_s"] + r["merge_s"]
+    say(
+        f"phase 8 a: 1 shard, t=0.3: fit + merge {wall:.2f} s ({N_FPS / wall:.0f} fps/s; "
+        f"merge {r['merge_s']:.3f} s), {r['n_clusters']} clusters (BatchTree: "
+        f"{PORT_COUNTS[0.3]}), {r['syncs']} host syncs, kernel launches "
+        f"{_launch_text(r['fit_launches'])} (0 generic), {forest.growths} table growths, "
+        f"peak {r['peak'] / 2**30:.2f} GiB allocated"
+    )
+    if min(r["fit_launches"]) <= 0:
+        raise AssertionError("the one-shard fit did not launch every kernel")
+    _held_count("one", r["n_clusters"], "phase 8 a")
+    count_a = r["n_clusters"]
+    del forest
+
+    # (b) eight shards on the one card, twice per threshold, and (d) inside
+    # their merges
+    mesh8 = get_mesh(devices=["cuda:0"] * 8)
+    for thr in (0.3, 0.65):
+        # The command line's capacity rule for 1M rows on eight shards
+        cap = (N_FPS // 8) * 2 + 2 * 8192
+        first = None
+        for run in (1, 2):
+            with _MergeSearchCheck(plain) as check:
+                forest, r = _sharded_run(dev_fps, mesh8, thr, check, initial_capacity=cap)
+            add(r["fit_launches"])
+            add(r["merge_launches"])
+            plain.check("the eight-shard fit and merge")
+            wall = r["fit_s"] + r["merge_s"]
+            say(
+                f"phase 8 b: 8 shards on cuda:0, t={thr}, run {run}: fit {r['fit_s']:.2f} s, "
+                f"merge {r['merge_s']:.2f} s ({r['merge_s'] / wall:.1%} of {wall:.2f} s; "
+                f"{N_FPS / wall:.0f} fps/s), {r['n_clusters']} clusters, {r['syncs']} host "
+                f"syncs, kernel launches: fit {_launch_text(r['fit_launches'])}, merge "
+                f"{_launch_text(r['merge_launches'])} (0 generic), {forest.growths} table "
+                f"growths, capacities {forest.capacity} slots / {forest.g_capacity} groups "
+                f"/ {forest.ls_capacity} pool rows, peak {r['fit_peak'] / 2**30:.2f} GiB "
+                f"in the fit, {r['peak'] / 2**30:.2f} GiB in all"
+            )
+            for stats in forest.merge_stats:
+                per = stats["receivers"]
+                say(
+                    f"phase 8 b: t={thr} run {run} merge round stride {stats['stride']}: "
+                    f"received groups far {sum(s['far'] for s in per.values())} / close "
+                    f"{sum(s['close'] for s in per.values())}, rows inserted row-level "
+                    f"{sum(s['rows'] for s in per.values())} ({len(per)} receivers), "
+                    f"{stats['retries']} retries, {stats['growths']} growths"
+                )
+            if min(r["fit_launches"]) <= 0:
+                raise AssertionError("the eight-shard fit did not launch every kernel")
+            rows_in = sum(
+                s["rows"] for st in forest.merge_stats for s in st["receivers"].values()
+            )
+            if rows_in and min(r["merge_launches"][0], r["merge_launches"][2]) <= 0:
+                raise AssertionError("the merge inserted rows and launched no sorted search")
+            if rows_in and min(check.checked.values()) <= 0:
+                raise AssertionError(f"phase 8 d: checked {check.checked} launches in the merge")
+            say(
+                f"phase 8 d: t={thr} run {run}: inside the merge {check.checked['sorted']} "
+                f"sorted and {check.checked['rows']} per-row launches == plain on the "
+                f"merge's inputs (pending rows, tiles, M of the first three: sorted "
+                f"{check.work['sorted'][:3]}, per-row {check.work['rows'][:3]})"
+            )
+            _held_count(thr, r["n_clusters"], f"phase 8 b t={thr}")
+            if run == 1:
+                first = _check_forest(forest, fps, f"b: t={thr}")
+            elif not np.array_equal(first, forest.labels()):
+                raise AssertionError(f"phase 8 b: two runs at t={thr} gave different labels")
+            else:
+                say(f"phase 8 b: t={thr}: two runs gave identical labels")
+            del forest
+    del dev_fps
+    torch.cuda.empty_cache()
+
+    # (c) CPU shards against shards of the card
+    small = make_fake_fingerprints(20_000, N_FEATURES, seed=SEED)
+    res = {}
+    for device in ("cpu", "cuda:0"):
+        t0 = time.perf_counter()
+        res[device] = sharded_fit(
+            small, get_mesh(devices=[device] * 4), input_is_packed=True,
+            threshold=0.3, batch_size=1024, centroid_block=1024,
+        )
+        say(
+            f"phase 8 c: 20k fps on 4 shards of {device}: {res[device].num_clusters} "
+            f"clusters in {time.perf_counter() - t0:.2f} s"
+        )
+    if not (
+        np.array_equal(res["cpu"].labels, res["cuda:0"].labels)
+        and np.array_equal(res["cpu"].sizes, res["cuda:0"].sizes)
+    ):
+        raise AssertionError("phase 8 c: CPU and CUDA shards gave different labels")
+    say("phase 8 c: CPU and CUDA shards gave identical labels and sizes")
+
+    # (e) the command line
+    with tempfile.TemporaryDirectory(prefix="bb-smoke-") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "fps.npy", fps)
+        out_dir = tmp / "out"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        cli_main([
+            "run", str(tmp / "fps.npy"), "-o", str(out_dir), "-t", "0.3",
+            "--engine", "sharded", "--no-monitor-mem", "-V",
+        ])
+        wall = time.perf_counter() - t0
+        add(_counts())
+        if min(_counts()) <= 0 or ts.generic_launches:
+            raise AssertionError(
+                f"phase 8 e: kernel launches {_launch_text(_counts())}, "
+                f"{ts.generic_launches} generic"
+            )
+        plain.check("the command line (--engine sharded)")
+        got = _check_run_dir(out_dir, fps, 0.3, "e: --engine sharded, one file, t=0.3", 8)
+        cfg, t = got["config"], got["timings"]
+        parts = ", ".join(f"{k} {v:.2f} s" for k, v in t.items() if k != "total")
+        say(
+            f"phase 8 e: {got['n_clusters']} clusters (one shard of a: {count_a}); "
+            f"{cfg['n_devices']} device(s), {cfg['device_table_bytes_per_device'] / 2**30:.2f} "
+            f"GiB of tables per shard; total {t['total']:.2f} s of {wall:.2f} s in main(): "
+            f"{parts}; kernel launches {_launch_text(_counts())} (0 generic)"
+        )
+        if cfg["n_devices"] != torch.cuda.device_count():
+            raise AssertionError("phase 8 e: the mesh is not every visible card")
+        _held_count("cli", got["n_clusters"], "phase 8 e")
     return launches
 
 
@@ -1087,7 +1396,19 @@ def _kernel_record(name, replaces, launches, phase) -> dict:
     }
 
 
+def _only_sharded() -> None:
+    r"""Phases 1 and 8 alone (no kernels line, no result line)."""
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+
+    phase_device()
+    fps = make_fake_fingerprints(N_FPS, N_FEATURES, seed=SEED)
+    with _PlainOnCuda() as plain:
+        say("phase 8 launches:", phase_sharded(fps, plain))
+
+
 def main() -> None:
+    if sys.argv[1:] == ["--only", "sharded"]:
+        return _only_sharded()
     kind = phase_device()
     kern = phase_kernel()
     rows = phase_row_kernel()

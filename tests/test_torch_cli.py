@@ -143,10 +143,10 @@ def test_run_verbose_prints_banner_and_config(tmp_path, capsys) -> None:
     assert "PyTorch + CUDA" in printed and "TPU" not in printed
 
 
-@pytest.mark.parametrize("engine", ["exact", "sharded", None])
+@pytest.mark.parametrize("engine", ["exact", None])
 def test_engines_not_ported_are_refused_by_name(tmp_path, capsys, engine) -> None:
     r"""``--engine`` keeps its three choices and its default (exact); the
-    two that are not ported exit with a usage error and write nothing."""
+    one that is not ported exits with a usage error and writes nothing."""
     input_ = _write_inputs(tmp_path, "file")
     out = tmp_path / "out"
     argv = ["run", str(input_), "-o", str(out), "--device", "cpu"]

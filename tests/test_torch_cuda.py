@@ -3,7 +3,9 @@ launch modes) and the sort plan's item-table kernel against their plain
 versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
-same functions on the CPU, and one command-line run on each device.
+same functions on the CPU, one command-line run on each device, and the
+sharded engine's merge on shards of one card (and, where there are two, of
+two cards).
 
 Marked ``cuda``: each test skips unless a CUDA device is available.  This
 file imports no JAX, so that it also runs where JAX is not installed; on
@@ -338,3 +340,46 @@ def test_cli_run_writes_the_same_pickles_on_cpu_and_cuda(cuda, tmp_path) -> None
     assert config["device"] == "cuda" and config["accelerators"]
     assert config["device_memory"]["peak_bytes_in_use"] > 0
     assert "device_memory" not in json.loads((outs["cpu"] / "config.json").read_text())
+
+
+def _sharded_labels(devices, fps):
+    from bblean_tpu_torch.parallel import ShardedForest, get_mesh
+
+    forest = ShardedForest(
+        2048, get_mesh(devices=devices), threshold=0.3, batch_size=512,
+        scan_batches=2, route_block=512,
+    )
+    forest.fit_packed(fps)
+    forest.merge()
+    return forest, forest.labels()
+
+
+def test_sharded_merge_on_a_card_equals_the_cpu(cuda) -> None:
+    r"""Four shards of one card merge into the CPU shards' labels, and the
+    merge's row-level inserts launch the kernels."""
+    fps = make_fake_fingerprints(12_000, seed=5)
+    _cpu_forest, ref = _sharded_labels(["cpu"] * 4, fps)
+    before, generic = ts.launches + ts.row_launches, ts.generic_launches
+    forest, got = _sharded_labels(["cuda:0"] * 4, fps)
+    np.testing.assert_array_equal(got, ref)
+    assert ts.launches + ts.row_launches > before and ts.generic_launches == generic
+    assert forest.states[0].n.device.type == "cuda" and forest.states[1:] == [None] * 3
+    rows = sum(s["rows"] for r in forest.merge_stats for s in r["receivers"].values())
+    assert rows > 0 and len(forest.merge_stats) == 2
+    _forest, from_tensor = _sharded_labels(["cuda:0"] * 4, torch.from_numpy(fps).to(cuda))
+    np.testing.assert_array_equal(from_tensor, ref)
+
+
+def test_sharded_merge_across_two_cards(cuda) -> None:
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from bblean_tpu_torch.parallel import get_mesh
+
+    fps = make_fake_fingerprints(12_000, seed=5)
+    _ref_forest, ref = _sharded_labels(["cuda:0"] * 4, fps)
+    forest, got = _sharded_labels(["cuda:0", "cuda:1", "cuda:0", "cuda:1"], fps)
+    np.testing.assert_array_equal(got, ref)
+    assert forest.states[0].n.device == torch.device("cuda", 0)
+    assert get_mesh(2).devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    with pytest.raises(ValueError, match="Requested"):
+        get_mesh(torch.cuda.device_count() + 1)

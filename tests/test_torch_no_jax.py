@@ -31,6 +31,8 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch.ops, bblean_tpu_torch.ops.popcount\n"
         "import bblean_tpu_torch.ops.tanimoto, bblean_tpu_torch.ops.kmeans\n"
         "import bblean_tpu_torch.ops.tsne\n"
+        "import bblean_tpu_torch.parallel, bblean_tpu_torch.parallel.mesh\n"
+        "import bblean_tpu_torch.parallel.sharded, bblean_tpu_torch._graft_entry\n"
         "import chip_smoke, chip_profile, chip_ab, bench_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'bblean_tpu' or m.startswith('bblean_tpu.'))\n"
@@ -71,6 +73,22 @@ def test_source_imports_nothing_of_the_jax_package(path) -> None:
         if m.split(".")[0] in ("jax", "jaxlib", "bblean_tpu")
     ]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_cli_text_names_the_engines_that_are_ported(capsys) -> None:
+    r"""The module's docstring and ``--engine``'s help say that the sharded
+    engine runs and that only the exact one is still refused."""
+    from bblean_tpu_torch import cli
+
+    doc = " ".join(cli.__doc__.split())
+    assert "``run --engine sharded``" in doc
+    assert "``--engine exact`` is refused by name" in doc
+    assert "``--engine sharded`` are refused" not in doc
+    with pytest.raises(SystemExit):
+        cli.main(["run", "--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert "sharded: one batched forest per visible device" in text
+    assert "only batch is ported" not in text
 
 
 def test_copied_host_helpers_equal_the_jax_package_ones(tmp_path) -> None:
