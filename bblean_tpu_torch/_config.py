@@ -2,8 +2,7 @@ r"""CLI defaults and run-metadata (``config.json``) collection.
 
 A copy of ``bblean_tpu/_config.py``: the defaults are those of the
 reference CLI; the spec dump names the CUDA devices and, for a run on one,
-its memory statistics.  The native host engine's fields are left out until
-that engine is ported.
+its memory statistics.
 """
 
 from __future__ import annotations
@@ -40,10 +39,17 @@ def _host_specs() -> dict[str, tp.Any]:
     import torch
 
     from bblean_tpu_torch._memory import system_mem_gib
-    from bblean_tpu_torch.utils import _cpu_name, _cuda_device_names
+    from bblean_tpu_torch.utils import (
+        _cpu_name,
+        _cuda_device_names,
+        native_extensions_are_enabled,
+        native_extensions_are_installed,
+    )
 
     total_mem, avail_mem = system_mem_gib()
     return {
+        "native_extensions_enabled": native_extensions_are_enabled(),
+        "native_extensions_installed": native_extensions_are_installed(),
         "total_memory_gib": total_mem,
         "initial_available_memory_gib": avail_mem,
         "platform": sys.platform,

@@ -57,6 +57,9 @@ class BBConsole(_Console):  # type: ignore[misc, valid-type]
             self.print(f"    - {key}: [yellow]{value}[/yellow]")
         self.print()
 
+    def print_multiround_config(self, config: tp.Mapping[str, tp.Any]) -> None:
+        self.print_config(config, title="Multi-round config")
+
     def print_peak_mem(self, out_dir: Path | str) -> None:
         path = Path(out_dir) / "max-rss.txt"
         if path.exists():
@@ -86,6 +89,9 @@ class SilentConsole:
         pass
 
     def print_config(self, *args: tp.Any, **kwargs: tp.Any) -> None:
+        pass
+
+    def print_multiround_config(self, *args: tp.Any, **kwargs: tp.Any) -> None:
         pass
 
     def print_peak_mem(self, *args: tp.Any, **kwargs: tp.Any) -> None:

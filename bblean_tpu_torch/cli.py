@@ -1,21 +1,28 @@
 r"""Command-line interface of the PyTorch + CUDA port.
 
 The part of ``bblean_tpu/cli.py`` that the port covers so far, under the
-same command and option names: clustering with the batched engine
-(``run --engine batch``) or sharded over every visible device (``run
---engine sharded``), and fingerprint file management (``fps-info``,
-``fps-split``, ``fps-shuffle``, ``fps-merge``).  Run-dir conventions are
-identical: a random 8-hex-digit directory under ``bb_run_outputs/``
-containing ``clusters.pkl``, ``cluster-centroids-packed.pkl``,
-``config.json``, ``timings.json``, ``monitor-rss.csv`` / ``max-rss.txt`` and
-``input-fps/`` symlinks.
+same command and option names: clustering on the host with ``BitBirch``
+(``run``, whose default is ``--engine exact``: reference-identical labels),
+with the batched engine on the device (``run --engine batch``) or sharded
+over every visible device (``run --engine sharded``), the multi-process
+workflow over many files (``multiround``), and fingerprint file management
+(``fps-info``, ``fps-split``, ``fps-shuffle``, ``fps-merge``).  Run-dir
+conventions are identical: a random 8-hex-digit directory under
+``bb_run_outputs/`` containing ``clusters.pkl``,
+``cluster-centroids-packed.pkl``, ``config.json``, ``timings.json``,
+``monitor-rss.csv`` / ``max-rss.txt`` and ``input-fps/`` symlinks.
 
-One option is the port's own: ``--device`` (default ``cuda``).  A run
-without a CUDA device raises unless ``--device cpu`` asks for the plain
-PyTorch path (``--engine sharded --device cpu`` runs one CPU shard).
-``--engine exact`` is refused by name until that engine is ported;
-``multiround``, ``fps-from-smiles``, ``summary`` and the plots are not
-ported yet.
+``--engine exact`` and ``multiround`` run on the host: in the native C++
+engine, built with ``$CXX`` or ``g++`` at first use, or in the Python
+engine where there is no compiler or ``BBLEAN_TPU_NO_EXTENSIONS=1`` is set.
+The labels are the same; ``config.json`` names the one that ran
+(``host_engine``).
+
+One option is the port's own: ``--device`` (default ``cuda``).  A batch or
+sharded run without a CUDA device raises unless ``--device cpu`` asks for
+the plain PyTorch path (``--engine sharded --device cpu`` runs one CPU
+shard).  The exact engine uses no device and ignores the option.
+``fps-from-smiles``, ``summary`` and the plots are not ported yet.
 
 Parsed with ``argparse``.  :func:`main` takes the argument list (default
 ``sys.argv[1:]``); a usage error exits with code 2 and a :class:`CliError`
@@ -74,6 +81,18 @@ def _make_run_dir(out_dir: Path | None, overwrite: bool) -> Path:
     return out_dir
 
 
+def _dump_cluster_outputs(tree, out_dir: Path, save_centroids: bool) -> None:
+    if save_centroids:
+        output = tree.get_centroids_mol_ids()
+        with open(out_dir / "clusters.pkl", "wb") as f:
+            pickle.dump(output["mol_ids"], f)
+        with open(out_dir / "cluster-centroids-packed.pkl", "wb") as f:
+            pickle.dump(output["centroids"], f)
+    else:
+        with open(out_dir / "clusters.pkl", "wb") as f:
+            pickle.dump(tree.get_cluster_mol_ids(), f)
+
+
 def _link_input_fps(out_dir: Path, files: tp.Sequence[Path], copy: bool) -> None:
     dest = (out_dir / "input-fps").resolve()
     dest.mkdir(exist_ok=True)
@@ -96,12 +115,8 @@ def _run(args: argparse.Namespace) -> None:
     from bblean_tpu_torch._memory import launch_monitor_rss_daemon
     from bblean_tpu_torch.fingerprints import _get_fps_file_num
 
-    if args.engine == "exact":
-        args.parser.error(
-            "--engine exact is not yet ported to PyTorch + CUDA; "
-            "--engine batch and --engine sharded are"
-        )
-    device = require_device(args.device)
+    # The exact engine runs on the host: it needs no device and names none
+    device = None if args.engine == "exact" else require_device(args.device)
 
     console = get_console(silent=not args.verbose)
     refine_num, refine_rounds = args.refine_num, args.refine_rounds
@@ -116,7 +131,7 @@ def _run(args: argparse.Namespace) -> None:
     config: dict[str, tp.Any] = {
         "command": "run",
         "engine": args.engine,
-        "device": str(device),
+        **({} if device is None else {"device": str(device)}),
         "input_files": [str(p.resolve()) for p in input_files],
         "num_fps_present": [_get_fps_file_num(p) for p in input_files],
         "out_dir": str(out_dir.resolve()),
@@ -141,6 +156,20 @@ def _run(args: argparse.Namespace) -> None:
 
     timer = Timer()
     timer.init_timing("total")
+    if args.engine == "exact":
+        _run_exact_engine(args, input_files, out_dir, config, console, timer,
+                          refine_num, refine_rounds)
+    else:
+        _run_device_engine(args, input_files, out_dir, config, console, timer,
+                           refine_num, refine_rounds, device)
+    _finish_run(args, config, console, timer, out_dir, input_files)
+
+
+def _run_device_engine(
+    args, input_files, out_dir, config, console, timer, refine_num,
+    refine_rounds, device,
+) -> None:
+    r"""The batch or the sharded engine on ``device``, by ``args.engine``."""
     common = dict(
         device=device,
         threshold=args.threshold, merge_criterion=args.merge_criterion,
@@ -164,10 +193,64 @@ def _run(args: argparse.Namespace) -> None:
     timer.end_timing("total", console, indent=False)
     console.print_peak_mem(out_dir)
     console.print_peak_hbm(device)
+
+
+def _finish_run(args, config, console, timer, out_dir, input_files) -> None:
     collect_system_specs_and_dump_config(config)
     timer.dump(out_dir / "timings.json")
     _link_input_fps(out_dir, input_files, args.copy_inputs)
     console.print(f"Outputs in: {out_dir}")
+
+
+def _run_exact_engine(
+    args, input_files, out_dir, config, console, timer, refine_num, refine_rounds
+) -> None:
+    r"""``BitBirch`` on the host (native or Python engine): fit every file,
+    refine and recluster, then dump the tree's clusters.  ``total`` of
+    ``timings.json`` ends before the pickles are written, as in ``bb``."""
+    from bblean_tpu_torch.tree import BitBirch
+
+    tree = BitBirch(
+        branching_factor=args.branching_factor,
+        threshold=args.threshold,
+        merge_criterion=args.merge_criterion,
+        tolerance=args.tolerance,
+    )
+    config["host_engine"] = tree.engine_name
+    with console.status("[italic]BitBirching...[/italic]", spinner="dots"):
+        for file in input_files:
+            tree.fit(
+                file,
+                n_features=args.n_features,
+                input_is_packed=args.input_is_packed,
+                max_fps=args.max_fps,
+            )
+    if args.recluster_rounds != 0 or refine_rounds != 0:
+        tree.set_merge(
+            args.refine_merge_criterion,
+            tolerance=args.tolerance,
+            threshold=args.threshold + args.refine_threshold_change,
+        )
+        for r in range(refine_rounds):
+            with console.status(
+                f"[italic]Refinement, round {r + 1}...[/italic]", spinner="dots"
+            ):
+                tree.refine_inplace(
+                    input_files if len(input_files) > 1 else input_files[0],
+                    input_is_packed=args.input_is_packed,
+                    n_largest=refine_num,
+                )
+        for r in range(args.recluster_rounds):
+            with console.status(
+                f"[italic]Reclustering, round {r + 1}...[/italic]", spinner="dots"
+            ):
+                tree.recluster_inplace(shuffle=args.recluster_shuffle)
+    timer.end_timing("total", console, indent=False)
+    console.print_peak_mem(out_dir)
+    if args.save_tree:
+        tree.save(out_dir / "bitbirch.pkl")
+    tree.delete_internal_nodes()
+    _dump_cluster_outputs(tree, out_dir, args.save_centroids)
 
 
 def _run_batch_engine(
@@ -421,6 +504,67 @@ def _run_sharded_engine(
     config["device_table_bytes_per_device"] = forest.state_bytes_per_device()
 
 
+def _multiround(args: argparse.Namespace) -> None:
+    r"""Parallel multi-round clustering over many `*.npy` shards."""
+    from bblean_tpu_torch._memory import launch_monitor_rss_daemon
+    from bblean_tpu_torch.multiround import run_multiround_bitbirch
+    from bblean_tpu_torch.tree import BitBirch
+
+    console = get_console(silent=not args.verbose)
+    input_files = _discover_input_files(args.input_)
+    out_dir = _make_run_dir(args.out_dir, args.overwrite)
+    config: dict[str, tp.Any] = {
+        "command": "multiround",
+        "input_files": [str(p.resolve()) for p in input_files],
+        "out_dir": str(out_dir.resolve()),
+        "branching_factor": args.branching_factor,
+        "threshold": args.threshold,
+        "initial_merge_criterion": args.initial_merge_criterion,
+        "midsection_merge_criterion": args.midsection_merge_criterion,
+        "final_merge_criterion": args.final_merge_criterion,
+        "tolerance": args.tolerance,
+        "num_processes": args.num_initial_processes,
+        "num_midsection_rounds": args.num_midsection_rounds,
+        "bin_size": args.bin_size,
+        "refinement_before_midsection": args.refinement_before_midsection,
+        "n_features": args.n_features,
+        "input_is_packed": args.input_is_packed,
+        "host_engine": BitBirch(
+            merge_criterion=args.initial_merge_criterion
+        ).engine_name,
+    }
+    console.print_banner()
+    console.print_multiround_config(config)
+    if args.monitor_rss:
+        launch_monitor_rss_daemon(out_dir)
+
+    timer = run_multiround_bitbirch(
+        input_files,
+        out_dir,
+        n_features=args.n_features,
+        input_is_packed=args.input_is_packed,
+        num_initial_processes=args.num_initial_processes,
+        num_midsection_processes=args.num_midsection_processes,
+        initial_merge_criterion=args.initial_merge_criterion,
+        branching_factor=args.branching_factor,
+        threshold=args.threshold,
+        midsection_threshold_change=args.midsection_threshold_change,
+        tolerance=args.tolerance,
+        num_midsection_rounds=args.num_midsection_rounds,
+        bin_size=args.bin_size,
+        refinement_before_midsection=args.refinement_before_midsection,
+        split_largest_after_each_midsection_round=args.split_largest,
+        midsection_merge_criterion=args.midsection_merge_criterion,
+        final_merge_criterion=args.final_merge_criterion,
+        save_tree=args.save_tree,
+        save_centroids=args.save_centroids,
+        max_fps=args.max_fps,
+        verbose=args.verbose,
+        cleanup=args.cleanup,
+    )
+    _finish_run(args, config, console, timer, out_dir, input_files)
+
+
 # -- fingerprint file commands --------------------------------------------------
 
 
@@ -512,14 +656,45 @@ def _build_parser() -> argparse.ArgumentParser:
     _flag_pair(p, ["--recluster-shuffle"], ["--no-recluster-shuffle"], "recluster_shuffle", True, help=hidden)
     p.add_argument("--n-features", type=int, default=None, help="Fingerprint bit count (needed for packed inputs not a multiple of 8)")
     _flag_pair(p, ["--packed-input"], ["--unpacked-input"], "input_is_packed", True)
-    p.add_argument("--engine", choices=["exact", "batch", "sharded"], default="exact", help="exact: reference-identical labels on host (not ported yet); batch: the batched engine on the device; sharded: one batched forest per visible device, merged pairwise")
-    p.add_argument("--device", default="cuda", help="Where the engine runs: a CUDA device (sharded: every visible one), or cpu for the plain PyTorch path")
+    p.add_argument("--engine", choices=["exact", "batch", "sharded"], default="exact", help="exact: reference-identical labels on the host (native C++ engine, or the Python engine where it cannot be built or BBLEAN_TPU_NO_EXTENSIONS=1); batch: the batched engine on the device; sharded: one batched forest per visible device, merged pairwise")
+    p.add_argument("--device", default="cuda", help="[batch, sharded engines] where the engine runs: a CUDA device (sharded: every visible one), or cpu for the plain PyTorch path; the exact engine runs on the host and ignores it")
     p.add_argument("--batch-size", dest="engine_batch_size", type=int, default=8192, help="[batch, sharded engines] rows per device step")
     p.add_argument("--fanout", dest="engine_fanout", type=int, default=None, help="[batch engine] clusters per group before a split (default: auto-tuned from the input size)")
     _flag_pair(p, ["--monitor-mem"], ["--no-monitor-mem"], "monitor_rss", True)
     p.add_argument("--monitor-mem-seconds", dest="monitor_rss_interval_s", type=float, default=1.0, help=hidden)
     p.add_argument("--max-fps", type=int, default=None, help=hidden)
     _flag_pair(p, ["--copy"], ["--no-copy"], "copy_inputs", False, help="Copy input files instead of symlinking")
+    _flag_pair(p, ["-v", "--verbose"], ["-V", "--no-verbose"], "verbose", True)
+
+    p = sub.add_parser(
+        "multiround", help="Parallel multi-round clustering over many `*.npy` shards",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.set_defaults(func=_multiround, parser=p)
+    p.add_argument("input_", metavar="INPUT", nargs="?", type=Path, default=None)
+    p.add_argument("-o", "--out-dir", type=Path, default=None)
+    p.add_argument("--overwrite", action="store_true")
+    p.add_argument("-b", "--branching", dest="branching_factor", type=int, default=DEFAULTS.branching_factor)
+    p.add_argument("-t", "--threshold", type=float, default=DEFAULTS.threshold)
+    p.add_argument("--midsection-threshold-change", type=float, default=DEFAULTS.refine_threshold_change)
+    p.add_argument("-m", "--set-merge", dest="initial_merge_criterion", default=DEFAULTS.merge_criterion)
+    p.add_argument("--set-midsection-merge", dest="midsection_merge_criterion", default=DEFAULTS.refine_merge_criterion)
+    p.add_argument("--set-final-merge", dest="final_merge_criterion", default=None)
+    p.add_argument("--tolerance", type=float, default=DEFAULTS.tolerance)
+    p.add_argument("-p", "--num-processes", dest="num_initial_processes", type=int, default=10, help="Processes for the initial round")
+    p.add_argument("--num-midsection-processes", type=int, default=None)
+    p.add_argument("--num-midsection-rounds", type=int, default=1)
+    p.add_argument("--bin-size", type=int, default=10)
+    p.add_argument("--refinement", dest="refinement_before_midsection", choices=["full", "split", "none"], default="full")
+    _flag_pair(p, ["--split-largest"], ["--no-split-largest"], "split_largest", False)
+    _flag_pair(p, ["--save-tree"], ["--no-save-tree"], "save_tree", False)
+    _flag_pair(p, ["--save-centroids"], ["--no-save-centroids"], "save_centroids", True)
+    p.add_argument("--n-features", type=int, default=None)
+    _flag_pair(p, ["--packed-input"], ["--unpacked-input"], "input_is_packed", True)
+    _flag_pair(p, ["--monitor-mem"], ["--no-monitor-mem"], "monitor_rss", True)
+    p.add_argument("--max-fps", type=int, default=None, help=hidden)
+    _flag_pair(p, ["--cleanup"], ["--no-cleanup"], "cleanup", True)
+    _flag_pair(p, ["--copy"], ["--no-copy"], "copy_inputs", False)
     _flag_pair(p, ["-v", "--verbose"], ["-V", "--no-verbose"], "verbose", True)
 
     p = sub.add_parser("fps-info", help="Inspect fingerprint `*.npy` files")

@@ -5,16 +5,16 @@ need nothing of the JAX package: ``pack_fingerprints`` /
 ``unpack_fingerprints``, ``make_fake_fingerprints``, the ``.npy`` header
 introspection (``_get_fps_file_num``, ``_print_fps_file_info``) and the
 multi-file gather (``_FingerprintFileSequence``,
-``_get_fingerprints_from_file_seq``) from ``bblean_tpu/fingerprints.py``,
-and the float64 ``jt_isim_from_sum`` from ``bblean_tpu/_np_similarity.py``.
+``_get_fingerprints_from_file_seq``) from ``bblean_tpu/fingerprints.py``.
 They are the same code, so a seed gives the same fingerprints in both
-packages.  The SMILES featurization (RDKit) is not ported yet.
+packages.  The float64 ``jt_isim_from_sum`` is defined once, in
+``_np_similarity.py``, and re-exported here.  The SMILES featurization
+(RDKit) is not ported yet.
 """
 
 from __future__ import annotations
 
 import typing as tp
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -87,27 +87,14 @@ def make_fake_fingerprints(
     return fps.astype(dtype, copy=False)
 
 
-def jt_isim_from_sum(linear_sum: NDArray[np.integer], n_objects: int) -> float:
-    r"""iSIM Jaccard-Tanimoto from a linear sum and an object count.
+def __getattr__(name: str) -> tp.Any:
+    # ``jt_isim_from_sum`` lives in ``_np_similarity`` (which imports this
+    # module); it stays importable from here, resolved at first access
+    if name == "jt_isim_from_sum":
+        from bblean_tpu_torch._np_similarity import jt_isim_from_sum
 
-    O(N) estimator of the average pairwise Tanimoto similarity of a set
-    (equivalently, 1 minus the Tanimoto diameter).
-    """
-    if n_objects < 2:
-        warnings.warn(
-            f"Invalid n_objects = {n_objects} in isim. Expected n_objects >= 2",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-        return np.nan
-    x = linear_sum.astype(np.uint64, copy=False)
-    sum_k = np.sum(x)
-    if sum_k == 0:
-        # All-zero fingerprints are identical, hence perfectly similar
-        return 1
-    sum_ksq = np.dot(x, x)  # dot conserves the uint64 dtype (exact)
-    a = (sum_ksq - sum_k) / 2  # float64 from here on
-    return a / (a + n_objects * sum_k - sum_ksq)
+        return jt_isim_from_sum
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _read_npy_header(path: Path) -> tuple[tuple[int, ...], np.dtype]:

@@ -2,8 +2,9 @@ r"""Misc. utility helpers shared across the port.
 
 Copies of the host helpers of ``bblean_tpu/utils.py`` (``min_safe_uint``,
 ``batched``, the CPU probes), with the accelerator names read from
-``torch.cuda``.  The probes of the native C++ host engine are left out
-until that engine is ported.
+``torch.cuda``, and the probes of the native C++ host engine (the same
+``BBLEAN_TPU_NO_EXTENSIONS`` switch as ``bblean_tpu``, so one environment
+drives both packages).
 """
 
 from __future__ import annotations
@@ -18,7 +19,12 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["batched", "min_safe_uint"]
+__all__ = [
+    "batched",
+    "min_safe_uint",
+    "native_extensions_are_enabled",
+    "native_extensions_are_installed",
+]
 
 _T = tp.TypeVar("_T")
 
@@ -97,3 +103,33 @@ def _has_files_or_valid_symlinks(path: Path) -> bool:
         if p.is_file():
             has_files = True
     return has_files
+
+
+def extensions_disabled_by_env() -> bool:
+    r"""True when the native-extension kill switch is set (and not set to a
+    false-y value: ``BBLEAN_TPU_NO_EXTENSIONS=0`` means *enabled*)."""
+    off = ("", "0", "false", "False")
+    return (
+        os.getenv("BBLEAN_TPU_NO_EXTENSIONS", "") not in off
+        or os.getenv("BITBIRCH_NO_EXTENSIONS", "") not in off
+    )
+
+
+def native_extensions_are_enabled() -> bool:
+    r"""Whether the native (C++) host engine is built and not disabled."""
+    if extensions_disabled_by_env():
+        return False
+    return native_extensions_are_installed()
+
+
+def native_extensions_are_installed() -> bool:
+    r"""Whether the native (C++) host library has been built (it is built at
+    its first use; nothing is built here)."""
+    from bblean_tpu_torch._native import native_lib_path
+
+    return native_lib_path() is not None
+
+
+# Backwards-compatible aliases matching the reference public names
+cpp_extensions_are_enabled = native_extensions_are_enabled
+cpp_extensions_are_installed = native_extensions_are_installed

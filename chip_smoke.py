@@ -73,7 +73,26 @@ as the phase ends:
    of (b), sampled launches of both tile-search front ends are held
    bit-equal to the plain version on the merge's own inputs; (e) the
    command line with ``--engine sharded`` on the 1M-row file.
-   ``python3 chip_smoke.py --only sharded`` runs phases 1 and 8 alone.
+   ``python3 chip_smoke.py --only sharded`` runs phases 1 and 8 alone;
+9. ``BitBirch`` and the command line's host commands, on 131,072 of the 1M
+   fingerprints: (a) the native C++ engine (built here with the host
+   compiler; its build seconds) at t = 0.3 and t = 0.65, fit wall, fps/s
+   and cluster count, every molecule once, sampled clusters meeting the
+   diameter criterion; the Python engine on the first 20,000 of those rows
+   gives the native engine's labels.  It fails if a host compiler is there
+   and the native engine is not the one that ran; (b) ``BatchTree`` on the
+   card on the same 131,072 rows against (a)'s serial counts: both counts
+   and their ratio (held to the 0.5x-1.3x band of the JAX package's test;
+   the number is the finding); (c) ``global_clustering(1000,
+   method="kmeans-tpu")`` on (a)'s t = 0.65 tree with no ``device=``: it
+   allocates on the card, labels in 1..k, two calls with one seed equal,
+   every molecule assigned; (d) ``cli.main(["run", file, "-t", "0.3"])`` with
+   no ``--engine``: (a)'s count, every molecule once, ``config.json`` names
+   the host engine; then ``cli.main(["multiround", dir, "-p", "4", ...])``
+   over 8 files of 16,384 rows: every molecule once, sampled clusters meet
+   the final round's criterion; walls from ``timings.json``.  The walls of
+   (a) and (d) are the host CPU's, named beside them.
+   ``python3 chip_smoke.py --only bitbirch`` runs phases 1 and 9 alone.
 
 Each main-path run (each fit, each predict, the refine, each command-line
 run) counts the kernels' launches from zero and must launch the kernels it
@@ -88,6 +107,7 @@ exits non-zero without a result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -125,6 +145,16 @@ TSNE_ITERS = 750
 # deterministic): one shard at the bench's settings, the command line's one
 # shard, and eight shards of cuda:0 per threshold
 SHARDED_COUNTS = {"one": 397_552, "cli": 397_552, 0.3: 404_913, 0.65: 976_372}
+# Phase 9: rows of the 1M input that BitBirch's host engines cluster, the
+# prefix of them that the Python engine clusters too, the clusters of the
+# global k-means, and the files and rows a file of the multiround run
+BITBIRCH_ROWS = 131_072
+BITBIRCH_PY_ROWS = 20_000
+GLOBAL_K = 1000
+MULTIROUND_FILES = 8
+# The band in which the JAX package's test holds BatchTree's count to the
+# serial engine's (tests/test_batch_engine.py)
+SERIAL_BAND = (0.5, 1.3)
 FIT_SETTINGS = {
     0.3: dict(initial_capacity=1 << 19, ls_capacity=1 << 18),
     0.65: dict(initial_capacity=1 << 21, ls_capacity=1 << 18),
@@ -218,23 +248,34 @@ def _median_ms(fn, reps=15) -> float:
     return float(np.median(times))
 
 
-def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> float:
-    r"""A kernel's own time on the card: mean duration of the ``reps``
-    launches of the kernel called ``name`` in a ``torch.profiler`` trace
-    (CUPTI), without the host dispatch around it."""
+def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
+    r"""A kernel's own time on the card: mean duration of the launches of
+    the kernel called ``name`` in a ``torch.profiler`` trace (CUPTI) of
+    ``reps`` calls, without the host dispatch around it; returns the mean
+    and the number of launches it is over.  CUPTI now and then loses an
+    activity record of a kernel this short, so a trace that holds fewer
+    than ``reps`` records is taken again, up to three times; the last one
+    counts if it holds at least half of them.  A record too many, or a
+    trace without the kernel, is an error at once."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in kern)
-    if count != reps:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in kern)
+        if count == reps:
+            break
+        if count > reps or count == 0:
+            raise AssertionError(f"the profiler saw {count} launches of {name}, not {reps}")
+        say(f"  profiler kept {count} of {reps} records of {name} (attempt {attempt + 1})")
+    if 2 * count < reps:
         raise AssertionError(f"the profiler saw {count} launches of {name}, not {reps}")
-    return sum(e.device_time_total for e in kern) / count / 1e3
+    return sum(e.device_time_total for e in kern) / count / 1e3, count
 
 
 def _bound(row_group, pending, tile_shape) -> dict:
@@ -278,7 +319,7 @@ def _time_case(kernel, plain, bound, name="tile_search_kernel") -> dict:
     r"""Kernel time (profiler), the same call with its host dispatch
     (events), the plain version's time, and the bound with its share."""
     out = dict(bound)
-    out["ms"] = _kernel_ms(kernel, name)
+    out["ms"], out["ms_over"] = _kernel_ms(kernel, name)
     out["call_ms"] = _median_ms(kernel)
     out["plain_ms"] = _median_ms(plain, reps=5)
     out["share"] = out["bound_ms"] / out["ms"]
@@ -288,7 +329,7 @@ def _time_case(kernel, plain, bound, name="tile_search_kernel") -> dict:
 def _timing_text(t: dict) -> str:
     work = f"{t['pending']} pending rows on {t['tiles']} tiles" if "tiles" in t else t["work"]
     return (
-        f" | kernel {t['ms']:.4f} ms (profiler, mean of 20; {t['call_ms']:.4f} ms "
+        f" | kernel {t['ms']:.4f} ms (profiler, mean of {t['ms_over']}; {t['call_ms']:.4f} ms "
         f"a call with dispatch, events), plain {t['plain_ms']:.4f} ms; "
         f"{work}: bound {t['bound_ms']:.4g} ms ({t['bound_by']}), share "
         f"{t['share']:.3f}"
@@ -556,10 +597,10 @@ def _check_assigned_once(tree) -> tuple[np.ndarray, np.ndarray]:
     return _check_labels(tree.assignments(), tree.cluster_sizes())
 
 
-def _check_labels(labels, sizes) -> tuple[np.ndarray, np.ndarray]:
-    if labels.shape != (N_FPS,) or (labels < 0).any():
+def _check_labels(labels, sizes, n: int = N_FPS) -> tuple[np.ndarray, np.ndarray]:
+    if labels.shape != (n,) or (labels < 0).any():
         raise AssertionError("not every molecule was assigned")
-    if int(sizes.sum()) != N_FPS:
+    if int(sizes.sum()) != n:
         raise AssertionError(f"cluster sizes sum to {int(sizes.sum())}")
     if not np.array_equal(np.bincount(labels, minlength=len(sizes)), sizes):
         raise AssertionError("assignments disagree with cluster sizes")
@@ -687,10 +728,12 @@ def phase_full_size() -> dict:
         torch.cuda.empty_cache()
         phase6 = phase_cli(fps, fit_walls, plain)
         phase8 = phase_sharded(fps, plain)
+        phase9 = phase_bitbirch(fps, plain)
     phase_side_ops(centroids)
     return {
         "launches": {
-            k: launches[k] + phase5[k] + phase6[k] + phase8[k] for k in launches
+            k: launches[k] + phase5[k] + phase6[k] + phase8[k] + phase9[k]
+            for k in launches
         },
     }
 
@@ -870,10 +913,12 @@ def _check_run_dir(out_dir, fps: np.ndarray, threshold: float, what: str, phase:
         raise AssertionError(f"{what}: clusters.pkl does not hold every molecule once")
     if (np.diff(sizes) > 0).any():
         raise AssertionError(f"{what}: clusters are not sorted by size")
-    if not len(clusters) == len(cents) == config["n_clusters"]:
+    # The host commands (exact engine, multiround) record no n_clusters
+    n_clusters = config.get("n_clusters", len(clusters))
+    if not len(clusters) == len(cents) == n_clusters:
         raise AssertionError(
             f"{what}: {len(clusters)} clusters, {len(cents)} centroids, "
-            f"n_clusters {config['n_clusters']}"
+            f"n_clusters {n_clusters}"
         )
     if not (out_dir / "input-fps").is_dir():
         raise AssertionError(f"{what}: no input-fps directory")
@@ -1279,6 +1324,277 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
     return launches
 
 
+def _host_cpu() -> str:
+    from bblean_tpu_torch.utils import _cpu_name, _num_avail_cpus
+
+    return f"host CPU {_cpu_name()!r}, {_num_avail_cpus()} cores"
+
+
+def _exact_fit(rows: np.ndarray, threshold: float, python: bool = False):
+    r"""``BitBirch.fit`` at the command line's branching factor, on the
+    native engine or (``python``) with the extensions switched off; returns
+    (tree, wall seconds)."""
+    from bblean_tpu_torch import BitBirch
+    from bblean_tpu_torch._config import DEFAULTS
+
+    switch = "BBLEAN_TPU_NO_EXTENSIONS"
+    before = os.environ.pop(switch, None)
+    if python:
+        os.environ[switch] = "1"
+    try:
+        t0 = time.perf_counter()
+        tree = BitBirch(
+            threshold=threshold, branching_factor=DEFAULTS.branching_factor
+        ).fit(rows)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop(switch, None)
+        if before is not None:
+            os.environ[switch] = before
+    return tree, wall
+
+
+def _check_exact_tree(tree, rows: np.ndarray, threshold: float, what: str) -> int:
+    r"""Every molecule once, sizes non-increasing, and 1,000 sampled
+    clusters meeting the diameter criterion; returns the cluster count."""
+    labels = tree.get_assignments().astype(np.int64) - 1
+    ids = tree.get_cluster_mol_ids()
+    sizes = np.fromiter((len(c) for c in ids), np.int64, len(ids))
+    _check_labels(labels, sizes, len(rows))
+    if (np.diff(sizes) > 0).any():
+        raise AssertionError(f"{what}: clusters are not sorted by size")
+    n, worst = _check_cohesion(labels, sizes, rows, threshold)
+    say(
+        f"phase 9 {what}: all {len(rows)} molecules once in {len(ids)} clusters; "
+        f"{n} sampled multi-member clusters meet the diameter criterion "
+        f"(min float64 iSIM {worst:.6f})"
+    )
+    return len(ids)
+
+
+def phase_bitbirch(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
+    r"""Phase 9: ``BitBirch`` on both host engines, ``BatchTree`` against the
+    serial count, the global k-means on the card, and the command line's
+    ``run`` (default engine) and ``multiround``."""
+    import tempfile
+    from pathlib import Path
+
+    from bblean_tpu_torch import BatchTree, _build, _native
+    from bblean_tpu_torch.cli import main as cli_main
+    from bblean_tpu_torch.ops import tile_search as ts
+
+    t_phase = time.perf_counter()
+    rows = np.ascontiguousarray(fps[:BITBIRCH_ROWS])
+    cpu = _host_cpu()
+
+    # (a) both host engines
+    try:
+        compiler = _build._find_cxx()
+    except _build.CompilerNotFound:
+        compiler = None
+    t0 = time.perf_counter()
+    native_ok = _native.available()  # builds the library; a failed build raises
+    say(
+        f"phase 9 a native library: compiler {compiler}, built in "
+        f"{_build.build_seconds.get('bblean_native.cpp', 0.0):.2f} s "
+        f"(build + load {time.perf_counter() - t0:.2f} s) -> {_native.loaded_lib_path()}"
+    )
+    if compiler is not None and not native_ok:
+        raise AssertionError("a host compiler is there and the native library did not load")
+    engine = "native" if native_ok else "python"
+    serial_counts, trees = {}, {}
+    for thr in (0.3, 0.65):
+        tree, wall = _exact_fit(rows, thr)
+        if tree.engine_name != engine:
+            raise AssertionError(f"phase 9 a: the {tree.engine_name} engine ran, not {engine}")
+        ncl = _check_exact_tree(tree, rows, thr, f"a t={thr} {engine} engine")
+        serial_counts[thr], trees[thr] = ncl, tree
+        say(
+            f"phase 9 a t={thr}: BitBirch.fit ({engine} engine) of {BITBIRCH_ROWS} rows "
+            f"{wall:.2f} s, {BITBIRCH_ROWS / wall:.0f} fps/s, {ncl} clusters ({cpu})"
+        )
+        small = rows[:BITBIRCH_PY_ROWS]
+        py_tree, py_wall = _exact_fit(small, thr, python=True)
+        nat_tree, nat_wall = _exact_fit(small, thr)
+        if py_tree.engine_name != "python" or nat_tree.engine_name != engine:
+            raise AssertionError("phase 9 a: the switch did not select the engines")
+        if not np.array_equal(py_tree.get_assignments(), nat_tree.get_assignments()):
+            raise AssertionError(f"phase 9 a t={thr}: the two engines' labels differ")
+        if py_tree.get_cluster_mol_ids() != nat_tree.get_cluster_mol_ids():
+            raise AssertionError(f"phase 9 a t={thr}: the two engines' clusters differ")
+        say(
+            f"phase 9 a t={thr}: Python engine on the first {BITBIRCH_PY_ROWS} rows "
+            f"{py_wall:.2f} s ({BITBIRCH_PY_ROWS / py_wall:.0f} fps/s), {engine} engine "
+            f"{nat_wall:.2f} s ({BITBIRCH_PY_ROWS / nat_wall:.0f} fps/s): identical labels, "
+            f"{len(py_tree.get_cluster_mol_ids())} clusters"
+        )
+    # The host's clock spreads (its cores are shared): the first fit once more
+    again, wall = _exact_fit(rows, 0.3)
+    if len(again.get_cluster_mol_ids()) != serial_counts[0.3]:
+        raise AssertionError("phase 9 a: a second fit gave another count")
+    say(
+        f"phase 9 a t=0.3 once more: {wall:.2f} s, {BITBIRCH_ROWS / wall:.0f} fps/s, "
+        f"the same {serial_counts[0.3]} clusters"
+    )
+    del again
+
+    # (b) BatchTree on the card against the serial counts
+    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    outside_band = []
+    dev_rows = torch.from_numpy(rows).to("cuda")
+    for thr in (0.3, 0.65):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = BatchTree(
+            N_FEATURES, threshold=thr, batch_size=8192, device="cuda",
+            initial_capacity=1 << 18,
+        )
+        tree.fit_packed(dev_rows, range(BITBIRCH_ROWS))
+        ncl = tree.num_clusters
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_sorted, n_rows, n_plan = _counts()
+        launches["sorted"] += n_sorted
+        launches["rows"] += n_rows
+        launches["plan"] += n_plan
+        if n_sorted <= 0 or n_plan <= 0 or ts.generic_launches:
+            raise AssertionError(
+                f"phase 9 b t={thr}: launches {n_sorted} sorted + {n_plan} plan, "
+                f"{ts.generic_launches} generic"
+            )
+        plain.check("phase 9 b")
+        labels, sizes = _check_labels(tree.assignments(), tree.cluster_sizes(), BITBIRCH_ROWS)
+        _check_cohesion(labels, sizes, rows, thr)
+        ratio = ncl / serial_counts[thr]
+        say(
+            f"phase 9 b t={thr}: BatchTree {ncl} clusters in {wall:.2f} s on the card "
+            f"against the serial {engine} engine's {serial_counts[thr]}: ratio "
+            f"{ratio:.6f} (band {SERIAL_BAND[0]}-{SERIAL_BAND[1]}); launches {n_sorted} "
+            f"sorted + {n_rows} per-row + {n_plan} plan"
+        )
+        if not SERIAL_BAND[0] <= ratio <= SERIAL_BAND[1]:
+            outside_band.append(f"t={thr}: ratio {ratio:.6f} outside {SERIAL_BAND}")
+        del tree
+    del dev_rows
+    torch.cuda.empty_cache()
+
+    # (c) the global k-means on the card, on the t = 0.65 tree's centroids
+    tree = trees[0.65]
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "experimental feature"
+            tree.global_clustering(GLOBAL_K, method="kmeans-tpu", seed=0)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        new_allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+        centroid_bytes = serial_counts[0.65] * N_FEATURES * 4
+        if new_allocs <= 0 or peak < centroid_bytes:
+            raise AssertionError(
+                f"phase 9 c: the k-means did not work on the card ({new_allocs} "
+                f"allocations, peak {peak} B < the centroids' {centroid_bytes} B)"
+            )
+        centroid_labels = np.asarray(tree._global_clustering_centroid_labels)
+        labels = tree.get_assignments(global_clusters=True)
+        if centroid_labels.min() < 1 or centroid_labels.max() > GLOBAL_K:
+            raise AssertionError("phase 9 c: a centroid's label is outside 1..k")
+        if labels.shape != (BITBIRCH_ROWS,) or labels.min() < 1 or labels.max() > GLOBAL_K:
+            raise AssertionError("phase 9 c: not every molecule got a global label in 1..k")
+        runs.append((centroid_labels, wall, peak))
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        raise AssertionError("phase 9 c: two calls with one seed differ")
+    say(
+        f"phase 9 c: global_clustering({GLOBAL_K}, method='kmeans-tpu') of "
+        f"{serial_counts[0.65]} centroids on {torch.cuda.get_device_name(0)}: "
+        f"{runs[0][1]:.2f} s, {runs[1][1]:.2f} s (centroids off the tree and onto the "
+        f"card included), {len(np.unique(runs[0][0]))} labels used, peak "
+        f"{runs[1][2] / 2**30:.2f} GiB allocated on the card; two calls identical; "
+        f"all {BITBIRCH_ROWS} molecules labelled in 1..{GLOBAL_K}"
+    )
+    del trees, tree
+
+    # (d) the command line's host commands
+    with tempfile.TemporaryDirectory(prefix="bb-smoke-") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "fps.npy", rows)
+        shards = tmp / "shards"
+        shards.mkdir()
+        per_file = BITBIRCH_ROWS // MULTIROUND_FILES
+        for i in range(MULTIROUND_FILES):
+            np.save(shards / f"fps.{i:02d}.npy", rows[i * per_file : (i + 1) * per_file])
+        _reset_counts()
+        t0 = time.perf_counter()
+        cli_main([
+            "run", str(tmp / "fps.npy"), "-o", str(tmp / "out-run"), "-t", "0.3",
+            "--no-monitor-mem", "-V",
+        ])
+        wall = time.perf_counter() - t0
+        got = _check_run_dir(tmp / "out-run", rows, 0.3, "d: run, default engine", phase=9)
+        cfg = got["config"]
+        if cfg["engine"] != "exact" or cfg["host_engine"] != engine or "device" in cfg:
+            raise AssertionError(f"phase 9 d: config.json says {cfg}")
+        if cfg["native_extensions_enabled"] != native_ok:
+            raise AssertionError("phase 9 d: config.json's native_extensions_enabled is wrong")
+        if got["n_clusters"] != serial_counts[0.3]:
+            raise AssertionError(
+                f"phase 9 d: the run's {got['n_clusters']} clusters are not "
+                f"BitBirch.fit's {serial_counts[0.3]}"
+            )
+        say(
+            f"phase 9 d run (no --engine): {got['n_clusters']} clusters (= phase 9 a), "
+            f"host engine {cfg['host_engine']}; total {got['timings']['total']:.2f} s of "
+            f"{wall:.2f} s in main() (the rest: extraction and pickles) ({cpu})"
+        )
+        # What a worker process of multiround's pool costs before it works:
+        # the fork server's start (it imports the package, and so torch,
+        # once) and a worker forked from it
+        import multiprocessing as mp
+
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(["bblean_tpu_torch.multiround"])
+        starts = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with ctx.Pool(processes=1) as pool:
+                pool.apply(os.getpid)
+            starts.append(time.perf_counter() - t0)
+        say(
+            f"phase 9 d pool of one worker: {starts[0]:.2f} s with the fork server's "
+            f"start, {starts[1]:.2f} s from the running server"
+        )
+        t0 = time.perf_counter()
+        cli_main([
+            "multiround", str(shards), "-o", str(tmp / "out-multiround"), "-t", "0.3",
+            "-p", "4", "--no-monitor-mem", "-V",
+        ])
+        wall = time.perf_counter() - t0
+        # The final round merges by tolerance-diameter at the same threshold:
+        # every cluster it leaves has an iSIM of at least the threshold
+        got = _check_run_dir(
+            tmp / "out-multiround", rows, 0.3, "d: multiround, 8 files, 4 processes", phase=9,
+        )
+        cfg = got["config"]
+        if cfg["host_engine"] != engine or cfg["final_merge_criterion"] is not None:
+            raise AssertionError(f"phase 9 d: multiround's config.json says {cfg}")
+        parts = ", ".join(f"{k} {v:.2f} s" for k, v in got["timings"].items() if k != "total")
+        say(
+            f"phase 9 d multiround ({MULTIROUND_FILES} files of {per_file} rows, 4 "
+            f"processes): {got['n_clusters']} clusters, host engine {cfg['host_engine']}; "
+            f"total {got['timings']['total']:.2f} s of {wall:.2f} s in main(): {parts} ({cpu})"
+        )
+        if sum(_counts()) != 0:
+            raise AssertionError("phase 9 d: a host command launched a device kernel")
+    say(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    if outside_band:
+        raise AssertionError("phase 9 b: " + "; ".join(outside_band))
+    return launches
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1406,9 +1722,22 @@ def _only_sharded() -> None:
         say("phase 8 launches:", phase_sharded(fps, plain))
 
 
+def _only_bitbirch() -> None:
+    r"""Phases 1 and 9 alone (no kernels line, no result line)."""
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+
+    phase_device()
+    # The first rows of the 1M input are a function of the whole draw
+    fps = make_fake_fingerprints(N_FPS, N_FEATURES, seed=SEED)[:BITBIRCH_ROWS]
+    with _PlainOnCuda() as plain:
+        say("phase 9 launches:", phase_bitbirch(fps, plain))
+
+
 def main() -> None:
     if sys.argv[1:] == ["--only", "sharded"]:
         return _only_sharded()
+    if sys.argv[1:] == ["--only", "bitbirch"]:
+        return _only_bitbirch()
     kind = phase_device()
     kern = phase_kernel()
     rows = phase_row_kernel()

@@ -34,7 +34,7 @@ HOST_KEYS = {
     "native_extensions_enabled", "native_extensions_installed",
     "total_memory_gib", "initial_available_memory_gib", "platform", "cpu",
     "accelerators", "numpy_version", "torch_version", "python_version",
-    "device", "device_memory",
+    "device", "device_memory", "host_engine",
 }
 
 
@@ -145,19 +145,25 @@ def test_run_verbose_prints_banner_and_config(tmp_path, capsys) -> None:
 
 @pytest.mark.parametrize("engine", ["exact", None])
 def test_engines_not_ported_are_refused_by_name(tmp_path, capsys, engine) -> None:
-    r"""``--engine`` keeps its three choices and its default (exact); the
-    one that is not ported exits with a usage error and writes nothing."""
+    r"""``--engine`` keeps its three choices and its default (exact), and no
+    choice is refused any more: every engine is ported.  ``exact``, by name
+    or by default, runs ``BitBirch`` on the host (no device asked for) and
+    gives the JAX CLI's clusters."""
     input_ = _write_inputs(tmp_path, "file")
-    out = tmp_path / "out"
-    argv = ["run", str(input_), "-o", str(out), "--device", "cpu"]
+    out_t, out_j = tmp_path / "out", tmp_path / "out-jax"
+    argv = ["run", str(input_), "-t", "0.3", "--no-monitor-mem", "-V"]
     if engine is not None:
         argv += ["--engine", engine]
-    with pytest.raises(SystemExit) as err:
-        torch_main(argv)
-    assert err.value.code == 2
-    message = capsys.readouterr().err
-    assert f"--engine {engine or 'exact'} is not yet ported" in message
-    assert not out.exists()
+    torch_main([*argv, "-o", str(out_t)])
+    assert "not yet ported" not in capsys.readouterr().err
+    result = CliRunner().invoke(jax_main, [*argv, "-o", str(out_j)])
+    assert result.exit_code == 0, result.output
+    clusters = _load(out_t / "clusters.pkl")
+    assert clusters == _load(out_j / "clusters.pkl")
+    assert sorted(i for c in clusters for i in c) == list(range(300))
+    cfg = json.loads((out_t / "config.json").read_text())
+    assert cfg["engine"] == "exact" and cfg["host_engine"] in ("native", "python")
+    assert "device" not in cfg
 
 
 def test_unknown_engine_and_missing_command_are_usage_errors(capsys) -> None:

@@ -5,7 +5,8 @@ same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
 sharded engine's merge on shards of one card (and, where there are two, of
-two cards).
+two cards), ``BitBirch``'s global clustering with the k-means on the card,
+and the native host library's build.
 
 Marked ``cuda``: each test skips unless a CUDA device is available.  This
 file imports no JAX, so that it also runs where JAX is not installed; on
@@ -23,6 +24,8 @@ from bblean_tpu_torch import BatchTree
 from bblean_tpu_torch.ops import tile_search as ts
 
 pytestmark = pytest.mark.cuda
+
+SEED = 12620509540149709235
 
 
 @pytest.fixture
@@ -383,3 +386,47 @@ def test_sharded_merge_across_two_cards(cuda) -> None:
     assert get_mesh(2).devices == (torch.device("cuda", 0), torch.device("cuda", 1))
     with pytest.raises(ValueError, match="Requested"):
         get_mesh(torch.cuda.device_count() + 1)
+
+
+def test_global_clustering_kmeans_runs_on_the_card(cuda) -> None:
+    r"""``global_clustering(method="kmeans-tpu")`` with no ``device=`` works
+    on the card: the k-means launches kernels and allocates there."""
+    import warnings
+
+    from bblean_tpu_torch import BitBirch
+
+    fps = make_fake_fingerprints(3000, seed=SEED)
+    tree = BitBirch(threshold=0.5).fit(fps)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tree.global_clustering(20, method="kmeans-tpu", seed=0)
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] > before
+        assert torch.cuda.max_memory_allocated() > 0
+        labels = tree.get_assignments(global_clusters=True)
+        assert labels.shape == (3000,) and labels.min() >= 1 and labels.max() <= 20
+        runs.append(labels)
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+def test_native_library_builds_and_equals_the_python_engine(cuda, monkeypatch) -> None:
+    r"""The card's machine has a host C++ compiler (``nvcc`` needs one): the
+    native library builds there, is the one loaded, and gives the Python
+    engine's labels."""
+    from bblean_tpu_torch import BitBirch, _native
+
+    monkeypatch.delenv("BBLEAN_TPU_NO_EXTENSIONS", raising=False)
+    fps = make_fake_fingerprints(2000, seed=SEED)
+    native = BitBirch(threshold=0.3).fit(fps)
+    assert native.engine_name == "native"
+    path = _native.loaded_lib_path()
+    assert path is not None and path.parent.name == "build" and path.parent.parent.name == "csrc"
+    assert path.parent.parent.parent.name == "bblean_tpu_torch"
+    monkeypatch.setenv("BBLEAN_TPU_NO_EXTENSIONS", "1")
+    python = BitBirch(threshold=0.3).fit(fps)
+    assert python.engine_name == "python"
+    assert native.get_cluster_mol_ids() == python.get_cluster_mol_ids()

@@ -33,9 +33,16 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch.ops.tsne\n"
         "import bblean_tpu_torch.parallel, bblean_tpu_torch.parallel.mesh\n"
         "import bblean_tpu_torch.parallel.sharded, bblean_tpu_torch._graft_entry\n"
+        "import bblean_tpu_torch._np_similarity, bblean_tpu_torch.similarity\n"
+        "import bblean_tpu_torch._merges, bblean_tpu_torch._native\n"
+        "import bblean_tpu_torch.engine.exact, bblean_tpu_torch.engine.native\n"
+        "import bblean_tpu_torch.tree, bblean_tpu_torch.metrics\n"
+        "import bblean_tpu_torch.multiround\n"
+        "from bblean_tpu_torch import BitBirch, set_merge\n"
         "import chip_smoke, chip_profile, chip_ab, bench_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'bblean_tpu' or m.startswith('bblean_tpu.'))\n"
+        "             or m == 'bblean_tpu' or m.startswith('bblean_tpu.')\n"
+        "             or m == 'sklearn' or m.startswith('sklearn.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -76,19 +83,25 @@ def test_source_imports_nothing_of_the_jax_package(path) -> None:
 
 
 def test_cli_text_names_the_engines_that_are_ported(capsys) -> None:
-    r"""The module's docstring and ``--engine``'s help say that the sharded
-    engine runs and that only the exact one is still refused."""
+    r"""The module's docstring and ``--engine``'s help say that every engine
+    runs, the exact one (the default) on the host, and that ``multiround``
+    is a command; no sentence says an engine is refused."""
     from bblean_tpu_torch import cli
 
     doc = " ".join(cli.__doc__.split())
     assert "``run --engine sharded``" in doc
-    assert "``--engine exact`` is refused by name" in doc
-    assert "``--engine sharded`` are refused" not in doc
+    assert "default is ``--engine exact``" in doc and "``multiround``" in doc
+    assert "refused" not in doc and "not yet ported" not in doc
     with pytest.raises(SystemExit):
         cli.main(["run", "--help"])
     text = " ".join(capsys.readouterr().out.split())
     assert "sharded: one batched forest per visible device" in text
-    assert "only batch is ported" not in text
+    assert "exact: reference-identical labels on the host" in text
+    assert "the exact engine runs on the host and ignores it" in text
+    assert "only batch is ported" not in text and "not ported yet" not in text
+    with pytest.raises(SystemExit):
+        cli.main(["multiround", "--help"])
+    assert "--num-midsection-rounds" in capsys.readouterr().out
 
 
 def test_copied_host_helpers_equal_the_jax_package_ones(tmp_path) -> None:
