@@ -23,16 +23,25 @@ A port of ``bblean_tpu`` from JAX to PyTorch.
   in-group tile search runs CUDA kernels written for Hopper
   (``csrc/tile_search.cu``, built with ``nvcc`` at first use); on the CPU it
   runs the kernels' plain PyTorch version.
-- ``cli.py`` is the command line (``run`` with ``--engine exact``, the
-  default, ``batch`` or ``sharded``; ``multiround``; the fingerprint file
-  commands), and ``ops/popcount.py``, ``ops/tanimoto.py``, ``ops/kmeans.py``,
+- ``cli.py`` is the command line, with every command of ``bb`` (``run``
+  with ``--engine exact``, the default, ``batch`` or ``sharded``;
+  ``multiround``; the fingerprint file commands and ``fps-from-smiles``;
+  ``summary`` and the ``plot-*`` commands; ``--version``), and
+  ``ops/popcount.py``, ``ops/tanimoto.py``, ``ops/kmeans.py``,
   ``ops/tsne.py`` are the side-path ops.
+- ``analysis.py``, ``plotting.py`` (matplotlib and seaborn imported by the
+  drawing code only; the PCA and t-SNE embeddings are functions of their
+  own, the t-SNE on the device) and ``_pca.py`` (the port's copy of what
+  the plots use of scikit-learn's PCA) are the analysis side;
+  ``smiles.py`` and ``fingerprints.py`` hold the SMILES featurization
+  (RDKit, optional).  ``benchmarks/`` holds the 10M-row fit and the
+  route's cost, run on a CUDA card.
 
 Every device entry point runs on a CUDA device unless the caller asks for
 the CPU (``_device.py``).  The package imports neither JAX nor
 ``bblean_tpu``: the host modules it needs are copied (besides those above,
-``fingerprints.py``, ``utils.py``, ``_config.py``, ``_console.py``,
-``_memory.py``, ``_timer.py``).  A pickle names its module, so a tree saved
+``fingerprints.py``, ``smiles.py``, ``analysis.py``, ``utils.py``,
+``_config.py``, ``_console.py``, ``_memory.py``, ``_timer.py``).  A pickle names its module, so a tree saved
 by one package does not load in the other.
 """
 

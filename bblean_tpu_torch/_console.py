@@ -13,7 +13,7 @@ import re
 import typing as tp
 from pathlib import Path
 
-__all__ = ["get_console"]
+__all__ = ["get_console", "table"]
 
 _BANNER = r"""
  _     _     _
@@ -102,6 +102,24 @@ class SilentConsole:
 
     def status(self, *args: tp.Any, **kwargs: tp.Any) -> tp.ContextManager:
         return contextlib.nullcontext()
+
+
+def table(title: str, columns: tp.Sequence[str], rows: tp.Sequence[tp.Sequence[str]]) -> tp.Any:
+    r"""A table for ``console.print``: rich's ``Table`` where rich is
+    installed, else the title over left-aligned columns, as plain text."""
+    try:
+        from rich.table import Table
+    except ImportError:
+        lines = [list(columns), *map(list, rows)]
+        widths = [max(len(line[i]) for line in lines) for i in range(len(columns))]
+        text = ["  ".join(v.ljust(w) for v, w in zip(line, widths)).rstrip() for line in lines]
+        return "\n".join([title, *text])
+    out = Table(title=title)
+    for name in columns:
+        out.add_column(name)
+    for row in rows:
+        out.add_row(*row)
+    return out
 
 
 def get_console(verbose: bool = True, silent: bool | None = None) -> tp.Any:

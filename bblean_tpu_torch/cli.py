@@ -1,7 +1,7 @@
 r"""Command-line interface of the PyTorch + CUDA port.
 
-The part of ``bblean_tpu/cli.py`` that the port covers so far, under the
-same command and option names: clustering on the host with ``BitBirch``
+Every command of ``bblean_tpu/cli.py``, under the same command and option
+names and defaults: clustering on the host with ``BitBirch``
 (``run``, whose default is ``--engine exact``: reference-identical labels),
 with the batched engine on the device (``run --engine batch``) or sharded
 over every visible device (``run --engine sharded``), the multi-process
@@ -18,15 +18,26 @@ engine where there is no compiler or ``BBLEAN_TPU_NO_EXTENSIONS=1`` is set.
 The labels are the same; ``config.json`` names the one that ran
 (``host_engine``).
 
-One option is the port's own: ``--device`` (default ``cuda``).  A batch or
-sharded run without a CUDA device raises unless ``--device cpu`` asks for
-the plain PyTorch path (``--engine sharded --device cpu`` runs one CPU
-shard).  The exact engine uses no device and ignores the option.
-``fps-from-smiles``, ``summary`` and the plots are not ported yet.
+The rest of ``bb``'s commands are here too: SMILES featurization
+(``fps-from-smiles``: serial, one file per batch through a ``forkserver``
+pool, or ``-p N --single-file`` into shared memory; it needs RDKit) and
+the analysis of a run directory (``summary``; ``plot-summary``,
+``plot-pops``, ``plot-pca``, ``plot-tsne``, ``plot-umap``, which need
+matplotlib, and seaborn or umap-learn for two of them), and
+``--version``.  A command whose optional package is missing exits with
+code 1 and an error that names the package.
+
+One option is the port's own: ``--device`` (default ``cuda``) of ``run``
+and ``plot-tsne``.  A batch or sharded run, or the t-SNE of ``plot-tsne``
+(where openTSNE is not installed), without a CUDA device raises unless
+``--device cpu`` asks for the plain PyTorch path (``--engine sharded
+--device cpu`` runs one CPU shard).  The exact engine uses no device and
+ignores the option.
 
 Parsed with ``argparse``.  :func:`main` takes the argument list (default
-``sys.argv[1:]``); a usage error exits with code 2 and a :class:`CliError`
-with code 1, as a command-line program does.
+``sys.argv[1:]``); a usage error exits with code 2, and a :class:`CliError`
+or a missing package (``ImportError``) with code 1, as a command-line
+program does.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from bblean_tpu_torch._timer import Timer
 __all__ = ["main", "CliError"]
 
 PROG = "bb-torch"
+DISTRIBUTION = "bblean-tpu"
 
 
 class CliError(Exception):
@@ -613,6 +625,201 @@ def _fps_merge(args: argparse.Namespace) -> None:
     print(f"Wrote {len(merged)} fingerprints to {args.output}")
 
 
+def _fps_from_smiles(args: argparse.Namespace) -> None:
+    r"""Featurize `*.smi` files into packed fingerprint `*.npy` files."""
+    import multiprocessing as mp
+
+    from bblean_tpu_torch.fingerprints import _FingerprintFileCreator, fps_from_smiles
+    from bblean_tpu_torch.smiles import (
+        _iter_idxs_and_smiles_batches,
+        iter_smiles_from_paths,
+    )
+
+    console = get_console(args.verbose)
+    out_dir, out_name = args.out_dir, args.out_name
+    out_dir.mkdir(exist_ok=True, parents=True)
+    files = [Path(f) for f in args.smiles_files]
+    if args.num_processes > 1 and args.single_file:
+        _fps_from_smiles_shared_memory(files, args, console)
+        return
+    if args.num_processes <= 1:
+        smiles = list(iter_smiles_from_paths(files))
+        result = fps_from_smiles(
+            smiles, kind=args.kind, n_features=args.n_features,
+            sanitize=args.sanitize, skip_invalid=args.skip_invalid, pack=args.pack,
+        )
+        if args.skip_invalid:
+            fps, invalid = result
+            if len(invalid):
+                console.print(f"Skipped {len(invalid)} invalid smiles")
+                np.save(out_dir / f"invalid-{out_name}.npy", invalid)
+        else:
+            fps = result
+        np.save(out_dir / out_name, fps)
+        console.print(f"Wrote {len(fps)} fingerprints to {out_dir / out_name}.npy")
+        return
+
+    batches = list(_iter_idxs_and_smiles_batches(files, args.batch_size))
+    digits = len(str(len(batches)))
+    worker = _FingerprintFileCreator(
+        dtype="uint8", out_dir=out_dir, out_name=out_name, digits=digits,
+        pack=args.pack, kind=args.kind, n_features=args.n_features,
+        sanitize=args.sanitize, skip_invalid=args.skip_invalid,
+        verbose=args.verbose,
+    )
+    ctx = mp.get_context("forkserver" if sys.platform == "linux" else None)
+    with ctx.Pool(processes=min(args.num_processes, len(batches))) as pool:
+        pool.map(worker, batches)
+    console.print(f"Wrote {len(batches)} fingerprint files to {out_dir}")
+
+
+def _fps_from_smiles_shared_memory(files: list[Path], args: argparse.Namespace, console) -> None:
+    r"""Parallel featurization into ONE output ``.npy``.
+
+    Workers write disjoint row ranges of a ``multiprocessing.shared_memory``
+    array plus an invalid-row bitmask; invalid rows are dropped at the end.
+    """
+    import multiprocessing as mp
+    import multiprocessing.shared_memory as shmem
+
+    from bblean_tpu_torch.fingerprints import _FingerprintArrayFiller
+    from bblean_tpu_torch.smiles import _iter_ranges_and_smiles_batches, calc_num_smiles
+
+    out_dir, out_name = args.out_dir, args.out_name
+    num_smiles = calc_num_smiles(files)
+    out_dim = (args.n_features + 7) // 8 if args.pack else args.n_features
+    fps_shm = shmem.SharedMemory(create=True, size=max(num_smiles * out_dim, 1))
+    mask_shm = shmem.SharedMemory(create=True, size=max(num_smiles, 1))
+    try:
+        # Zero the invalid mask: SharedMemory contents are not guaranteed
+        np.ndarray((num_smiles,), dtype=np.bool_, buffer=mask_shm.buf)[:] = False
+        filler = _FingerprintArrayFiller(
+            invalid_mask_shmem_name=mask_shm.name,
+            shmem_name=fps_shm.name,
+            kind=args.kind,
+            fp_size=args.n_features,
+            pack=args.pack,
+            dtype="uint8",
+            num_smiles=num_smiles,
+            sanitize=args.sanitize,
+            skip_invalid=args.skip_invalid,
+        )
+        ctx = mp.get_context("forkserver" if sys.platform == "linux" else None)
+        with ctx.Pool(processes=args.num_processes) as pool:
+            pool.starmap(filler, _iter_ranges_and_smiles_batches(files, args.batch_size))
+        fps = np.ndarray((num_smiles, out_dim), dtype=np.uint8, buffer=fps_shm.buf)
+        mask = np.ndarray((num_smiles,), dtype=np.bool_, buffer=mask_shm.buf)
+        if args.skip_invalid and mask.any():
+            invalid = mask.nonzero()[0]
+            fps = np.delete(fps, invalid, axis=0)
+            np.save(out_dir / f"invalid-{out_name}.npy", invalid)
+            console.print(f"Skipped {invalid.size} invalid smiles")
+        else:
+            fps = fps.copy()  # detach from shared memory before unlink
+        np.save(out_dir / out_name, fps)
+        console.print(f"Wrote {len(fps)} fingerprints to {out_dir / out_name}.npy")
+    finally:
+        fps_shm.close()
+        fps_shm.unlink()
+        mask_shm.close()
+        mask_shm.unlink()
+
+
+# -- analysis commands ----------------------------------------------------------
+
+
+def _load_run_dir(run_dir: Path) -> tuple[list[list[int]], tp.Any]:
+    r"""A run directory's clusters and its fingerprints argument for
+    ``cluster_analysis``: None without ``input-fps/`` files, the path of
+    one file, or the list of several."""
+    clusters_path = run_dir / "clusters.pkl"
+    if not clusters_path.exists():
+        raise CliError(f"{clusters_path} not found")
+    with open(clusters_path, "rb") as f:
+        clusters = pickle.load(f)
+    fps_dir = run_dir / "input-fps"
+    fps_files = sorted(fps_dir.glob("*.npy")) if fps_dir.is_dir() else []
+    if not fps_files:
+        return clusters, None
+    return clusters, fps_files[0] if len(fps_files) == 1 else fps_files
+
+
+def _summary(args: argparse.Namespace) -> None:
+    r"""Summarize the clusters of a `run`/`multiround` output dir."""
+    from bblean_tpu_torch._console import table
+    from bblean_tpu_torch.analysis import cluster_analysis
+
+    console = get_console(True)
+    clusters, fps_arg = _load_run_dir(args.run_dir)
+    ca = cluster_analysis(clusters, fps=fps_arg, top=args.top, min_size=args.min_size)
+
+    console.print(f"Total fingerprints: {ca.total_fps:,}")
+    console.print(f"Total clusters: {ca.all_clusters_num:,}")
+    console.print(f"Singletons: {ca.all_singletons_num:,}")
+    console.print(
+        "Cluster sizes: "
+        f"mean={ca.all_clusters_mean_size:.1f}"
+        f" median={ca.all_clusters_median_size}"
+        f" q1={ca.all_clusters_q1} q3={ca.all_clusters_q3}"
+        f" max={ca.all_clusters_max_size}"
+    )
+    columns = ["label", "size"] + (["iSIM"] if ca.has_fps else [])
+    rows = []
+    for i in range(ca.clusters_num):
+        row = [str(ca.labels[i]), str(ca.sizes[i])]
+        if ca.has_fps:
+            row.append(f"{ca.isims[i]:.4f}")
+        rows.append(row)
+    console.print(table(f"Top {ca.clusters_num} clusters", columns, rows))
+
+    if (args.chi or args.dbi or args.dunn) and ca.has_fps:
+        cluster_fps = [c for c in ca.get_top_cluster_fps() if len(c) >= 1]
+        from bblean_tpu_torch import metrics
+
+        if args.chi:
+            console.print(f"CHI (higher better): {metrics.jt_isim_chi(cluster_fps):.4f}")
+        if args.dbi:
+            console.print(f"DBI (lower better): {metrics.jt_dbi(cluster_fps):.4f}")
+        if args.dunn:
+            console.print(f"Dunn (higher better): {metrics.jt_isim_dunn(cluster_fps):.4f}")
+    if args.dump_metrics_path is not None:
+        ca.dump_metrics(args.dump_metrics_path)
+        console.print(f"Metrics dumped to {args.dump_metrics_path}")
+
+
+def _plot(args: argparse.Namespace) -> None:
+    r"""One ``plot-*`` command: ``plotting.<kind>_plot_from_clusters`` on the
+    run directory's clusters and input files, into ``<run dir>/<kind>.png``
+    unless ``-o`` names the file."""
+    from bblean_tpu_torch import plotting
+
+    clusters, fps_arg = _load_run_dir(args.run_dir)
+    out = args.output or args.run_dir / f"{args.kind}.png"
+    extra = {"device": args.device} if args.kind == "tsne" else {}
+    getattr(plotting, f"{args.kind}_plot_from_clusters")(
+        clusters, fps_arg, top=args.top, output=out, **extra
+    )
+    print(f"Wrote {out}")
+
+
+class _VersionAction(argparse.Action):
+    r"""``--version``: the installed distribution's version, printed as
+    click's ``version_option`` prints ``bb``'s."""
+
+    def __init__(self, option_strings, dest=argparse.SUPPRESS, default=argparse.SUPPRESS, help=None):
+        super().__init__(option_strings, dest=dest, default=default, nargs=0, help=help)
+
+    def __call__(self, parser, namespace, values, option_string=None) -> None:
+        from importlib import metadata
+
+        try:
+            version = metadata.version(DISTRIBUTION)
+        except metadata.PackageNotFoundError:
+            parser.exit(1, f"Error: the distribution {DISTRIBUTION!r} is not installed, so it has no version\n")
+        print(f"{PROG}, version {version}")
+        parser.exit()
+
+
 # -- parser ---------------------------------------------------------------------
 
 
@@ -632,6 +839,7 @@ def _build_parser() -> argparse.ArgumentParser:
         prog=PROG,
         description="BitBIRCH clustering of molecular libraries on PyTorch + CUDA.",
     )
+    parser.add_argument("--version", action=_VersionAction, help="Show the version and exit")
     sub = parser.add_subparsers(dest="command", required=True, metavar="COMMAND")
 
     p = sub.add_parser(
@@ -718,6 +926,59 @@ def _build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=_fps_merge, parser=p)
     p.add_argument("files", nargs="+", type=Path)
     p.add_argument("-o", "--output", type=Path, required=True)
+
+    p = sub.add_parser(
+        "fps-from-smiles",
+        help="Featurize `*.smi` files into packed fingerprint `*.npy` files (requires RDKit)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.set_defaults(func=_fps_from_smiles, parser=p)
+    p.add_argument("smiles_files", nargs="+", type=Path)
+    p.add_argument("-o", "--out-dir", type=Path, default=Path("bb_inputs"))
+    p.add_argument("--out-name", default="fps")
+    p.add_argument("--kind", default=DEFAULTS.fp_kind, choices=["rdkit", "ecfp4", "ecfp6"])
+    p.add_argument("--n-features", type=int, default=DEFAULTS.n_features)
+    p.add_argument("--sanitize", default="all", choices=["all", "minimal"])
+    _flag_pair(p, ["--skip-invalid"], ["--no-skip-invalid"], "skip_invalid", False)
+    _flag_pair(p, ["--pack"], ["--no-pack"], "pack", True)
+    p.add_argument("-p", "--num-processes", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=50_000, help="SMILES per output file in parallel mode")
+    _flag_pair(
+        p, ["--single-file"], ["--multi-file"], "single_file", False,
+        help="In parallel mode, featurize into ONE output array via shared memory instead of one .npy per batch",
+    )
+    _flag_pair(p, ["-v", "--verbose"], ["-V", "--no-verbose"], "verbose", True)
+
+    p = sub.add_parser(
+        "summary", help="Summarize the clusters of a `bb-torch run`/`multiround` output dir",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.set_defaults(func=_summary, parser=p)
+    p.add_argument("run_dir", type=Path)
+    p.add_argument("--top", type=int, default=20)
+    p.add_argument("--min-size", type=int, default=0)
+    _flag_pair(p, ["--chi"], ["--no-chi"], "chi", False, help="Compute the CHI quality index")
+    _flag_pair(p, ["--dbi"], ["--no-dbi"], "dbi", False, help="Compute the DBI quality index")
+    _flag_pair(p, ["--dunn"], ["--no-dunn"], "dunn", False, help="Compute the Dunn quality index")
+    p.add_argument("--dump-metrics", dest="dump_metrics_path", type=Path, default=None)
+
+    plots = {
+        "summary": "Bar + iSIM summary plot of a run dir",
+        "pops": "Cluster population KDE plot of a run dir",
+        "pca": "PCA embedding plot of the top clusters",
+        "tsne": "t-SNE embedding plot of the top clusters",
+        "umap": "UMAP embedding plot of the top clusters",
+    }
+    for kind, text in plots.items():
+        p = sub.add_parser(
+            f"plot-{kind}", help=text, formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+        )
+        p.set_defaults(func=_plot, parser=p, kind=kind)
+        p.add_argument("run_dir", type=Path)
+        p.add_argument("--top", type=int, default=20)
+        p.add_argument("-o", "--output", type=Path, default=None)
+        if kind == "tsne":
+            p.add_argument("--device", default="cuda", help="where the t-SNE runs when openTSNE is not installed: a CUDA device, or cpu for the plain PyTorch path")
     return parser
 
 
@@ -727,7 +988,9 @@ def main(argv: tp.Sequence[str] | None = None) -> None:
     args = parser.parse_args(argv)
     try:
         args.func(args)
-    except CliError as err:
+    except (CliError, ImportError) as err:
+        # A missing optional package (RDKit, matplotlib, ...) is the
+        # user's to install: its message names it
         print(f"Error: {err}", file=sys.stderr)
         raise SystemExit(1) from err
 

@@ -13,15 +13,17 @@ as the phase ends:
    264-bit rows (the generic path, counted apart); sims bit-equal, slots
    equal where a candidate exists.  For rows on one, three and 4,095
    groups, and at the fit's average launch (7,408 of 8,192 rows pending on
-   64 groups, from ``chip_profile.py``): the kernel's time (profiler) and
+   64 groups, from ``chip_profile.py``), each with 256- and with 512-cell
+   tiles (the 10M configuration's): the kernel's time (profiler) and
    its time per call with the host dispatch (events), the plain version's
    time, and the bound computed from the case's pending rows and distinct
    tiles, with what bounds it and the kernel's share of it;
    ``torch._int_mm`` of the unpacked bits, as information (intersections
    only, not the same function);
 2b. the per-row front end against the same plain version, at the narrow
-   rounds' and predict's shapes, with the same times and bounds (the fit's
-   average per-row launch: 515 of 2,048 rows pending on 2 groups);
+   rounds' and predict's shapes, with the same times and bounds at 256- and
+   512-cell tiles (the fit's average per-row launch: 515 of 2,048 rows
+   pending on 2 groups);
 2c. the sort plan's item-table kernel against its plain version, at the
    fit's and predict's batches, timed on the fit's keys;
 3. the port on the CPU (plain search) and on the card (kernels) give the
@@ -92,7 +94,22 @@ as the phase ends:
    over 8 files of 16,384 rows: every molecule once, sampled clusters meet
    the final round's criterion; walls from ``timings.json``.  The walls of
    (a) and (d) are the host CPU's, named beside them.
-   ``python3 chip_smoke.py --only bitbirch`` runs phases 1 and 9 alone.
+   ``python3 chip_smoke.py --only bitbirch`` runs phases 1 and 9 alone;
+10. the analysis side on phase 6's run directory (a) (1M rows, t = 0.3):
+   ``cli.main(["summary", dir, "--top", "20", "--chi", "--dbi", "--dunn",
+   "--dump-metrics", csv])`` prints 1,000,000 fingerprints and 397,552
+   clusters; ``plotting.pca_embedding`` of the top 20 clusters (193,964
+   rows) and ``plotting.tsne_embedding`` (750 iterations on the card) of
+   the first 1,000 rows of each (the exact t-SNE's (N, N) matrices of all
+   of them would be 140 GiB each), finite and of their row counts, with
+   walls and the card's peak memory; the t-SNE on the card against the CPU
+   after 5 iterations, to phase 7's 1e-3 of the embedding's scale, on the
+   first 100 rows of each; ``plot-tsne`` exits 1 naming matplotlib
+   where matplotlib is not installed (else it writes the PNG),
+   ``fps-from-smiles`` exits 1 naming RDKit where RDKit is not installed,
+   and ``--version`` prints the installed version (or exits 1 saying the
+   distribution is not installed).  ``python3 chip_smoke.py --only
+   analysis`` runs phase 1, the command line's run (a) and phase 10 alone.
 
 Each main-path run (each fit, each predict, the refine, each command-line
 run) counts the kernels' launches from zero and must launch the kernels it
@@ -110,8 +127,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -370,7 +389,7 @@ def phase_kernel() -> dict:
         for fc in (256, 512)
         for conc in ("one", "few", "spread")
     ] + [
-        (8192, 256, 256, "fit", ""),
+        (8192, 256, 256, "fit", ""), (8192, 512, 256, "fit", ""),
         (8192, 256, 256, "spread", "empty"), (2048, 64, 33, "few", ""),
         (2048, 64, 13, "few", ""), (8192, 256, 256, "few", "ties"),
         (8192, 256, 256, "one", "long"),
@@ -404,9 +423,10 @@ def phase_kernel() -> dict:
         if kind == "ties":
             _tie_check(got, row_pk, row_group, t_pk, t_slot, pending, what)
         line = f"phase 2 kernel == plain: {what}"
-        if m == 8192 and fc == 256 and f8 == 256 and not kind:
-            timing[conc] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
-            line += _timing_text(timing[conc])
+        if m == 8192 and f8 == 256 and not kind:
+            key = conc if fc == 256 else f"{conc} Fc={fc}"
+            timing[key] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
+            line += _timing_text(timing[key])
         say(line)
         if m == 8192 and fc == 256 and f8 == 256 and conc == "one" and not kind:
             say(_int_mm_line(row_pk, t_pk))
@@ -447,7 +467,7 @@ def phase_row_kernel() -> dict:
         for f8 in (256, 33)
         for conc in ("one", "few", "spread")
     ] + [
-        (2048, 256, 256, "fit", ""),
+        (2048, 256, 256, "fit", ""), (2048, 512, 256, "fit", ""),
         (2048, 256, 256, "spread", "empty"), (1000, 512, 33, "few", "empty"),
         (2048, 64, 13, "few", ""), (2048, 256, 256, "few", "ties"),
     ]
@@ -479,9 +499,10 @@ def phase_row_kernel() -> dict:
         if kind == "ties":
             _tie_check(got, row_pk, row_group, t_pk, t_slot, pending, what)
         line = f"phase 2b per-row kernel == plain: {what}"
-        if m == 2048 and fc == 256 and f8 == 256 and not kind:
-            timing[conc] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
-            line += _timing_text(timing[conc])
+        if m == 2048 and f8 == 256 and not kind:
+            key = conc if fc == 256 else f"{conc} Fc={fc}"
+            timing[key] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
+            line += _timing_text(timing[key])
         say(line)
     return {"max_abs_err": max_err, "timing": timing}
 
@@ -726,10 +747,13 @@ def phase_full_size() -> dict:
         phase5, centroids = phase_predict_refine(kept, fps, plain)
         del kept
         torch.cuda.empty_cache()
-        phase6 = phase_cli(fps, fit_walls, plain)
-        phase8 = phase_sharded(fps, plain)
-        phase9 = phase_bitbirch(fps, plain)
-    phase_side_ops(centroids)
+        # Run (a)'s directory of phase 6 is kept for phase 10
+        with tempfile.TemporaryDirectory(prefix="bb-smoke-") as tmp:
+            phase6, run_dir = phase_cli(fps, fit_walls, plain, Path(tmp))
+            phase8 = phase_sharded(fps, plain)
+            phase9 = phase_bitbirch(fps, plain)
+            phase_side_ops(centroids)
+            phase_analysis(run_dir)
     return {
         "launches": {
             k: launches[k] + phase5[k] + phase6[k] + phase8[k] + phase9[k]
@@ -949,94 +973,90 @@ def _check_run_dir(out_dir, fps: np.ndarray, threshold: float, what: str, phase:
     return {"n_clusters": len(clusters), "timings": timings, "config": config}
 
 
-def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda") -> dict:
-    r"""Phase 6: the port's command line from ``.npy`` files to pickles."""
-    import tempfile
-    from pathlib import Path
-
+def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda", tmp: Path) -> tuple[dict, Path]:
+    r"""Phase 6: the port's command line from ``.npy`` files to pickles, in
+    the directory ``tmp``; returns the launches and run (a)'s directory."""
     from bblean_tpu_torch.cli import main as cli_main
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
     from bblean_tpu_torch.ops import tile_search as ts
 
     launches = {"sorted": 0, "rows": 0, "plan": 0}
-    with tempfile.TemporaryDirectory(prefix="bb-smoke-") as tmp:
-        tmp = Path(tmp)
-        one = tmp / "one" / "fps.npy"
-        two = tmp / "two"
-        one.parent.mkdir()
-        two.mkdir()
+    one = tmp / "one" / "fps.npy"
+    two = tmp / "two"
+    one.parent.mkdir()
+    two.mkdir()
+    t0 = time.perf_counter()
+    np.save(one, fps)
+    half = 3 * N_FPS // 5  # an uneven cut, inside a scan window
+    np.save(two / "part0.npy", fps[:half])
+    np.save(two / "part1.npy", fps[half:])
+    say(f"phase 6 input: 1M fps written to one file and to two ({half} + {N_FPS - half} rows) in {time.perf_counter() - t0:.1f} s")
+    staging = _staging_alone(one)
+    say(
+        f"phase 6 reading and staging alone (mapped file to the card in "
+        f"fit_packed's chunks, page cache warm): {staging:.3f} s"
+    )
+    runs = [
+        ("a: one file, t=0.3", one, 0.3, []),
+        ("b: two files, t=0.3, --refine-num 1", two, 0.3, ["--refine-num", "1"]),
+        ("c: one file, t=0.65", one, 0.65, []),
+    ]
+    for what, input_, thr, extra in runs:
+        out_dir = tmp / f"out-{what[0]}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
         t0 = time.perf_counter()
-        np.save(one, fps)
-        half = 3 * N_FPS // 5  # an uneven cut, inside a scan window
-        np.save(two / "part0.npy", fps[:half])
-        np.save(two / "part1.npy", fps[half:])
-        say(f"phase 6 input: 1M fps written to one file and to two ({half} + {N_FPS - half} rows) in {time.perf_counter() - t0:.1f} s")
-        staging = _staging_alone(one)
-        say(
-            f"phase 6 reading and staging alone (mapped file to the card in "
-            f"fit_packed's chunks, page cache warm): {staging:.3f} s"
-        )
-        runs = [
-            ("a: one file, t=0.3", one, 0.3, []),
-            ("b: two files, t=0.3, --refine-num 1", two, 0.3, ["--refine-num", "1"]),
-            ("c: one file, t=0.65", one, 0.65, []),
-        ]
-        for what, input_, thr, extra in runs:
-            out_dir = tmp / f"out-{what[0]}"
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            _reset_counts()
-            t0 = time.perf_counter()
-            cli_main([
-                "run", str(input_), "-o", str(out_dir), "-t", str(thr),
-                "--engine", "batch", "--no-monitor-mem", "-V", *extra,
-            ])
-            wall = time.perf_counter() - t0
-            n_sorted, n_rows, n_plan = _counts()
-            launches["sorted"] += n_sorted
-            launches["rows"] += n_rows
-            launches["plan"] += n_plan
-            if min(n_sorted, n_rows, n_plan) <= 0 or ts.generic_launches:
-                raise AssertionError(
-                    f"phase 6 {what}: kernel launches {n_sorted} sorted + {n_rows} "
-                    f"per-row + {n_plan} plan, {ts.generic_launches} generic"
-                )
-            plain.check(f"the command line ({what})")
-            got = _check_run_dir(out_dir, fps, thr, what)
-            t = got["timings"]
-            peak = got["config"]["device_memory"]["peak_bytes_in_use"]
-            parts = ", ".join(f"{k} {v:.2f} s" for k, v in t.items() if k != "total")
-            say(
-                f"phase 6 {what}: {got['n_clusters']} clusters (resident fit of phase 4: "
-                f"{PORT_COUNTS[thr]}); total {t['total']:.2f} s of {wall:.2f} s in "
-                f"main(): {parts}; resident-input fit of phase 4 {fit_walls[thr]:.2f} s; "
-                f"kernel launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan "
-                f"(0 generic); peak {peak / 2**30:.2f} GiB allocated; device "
-                f"{got['config']['device']} {got['config']['accelerators']}"
+        cli_main([
+            "run", str(input_), "-o", str(out_dir), "-t", str(thr),
+            "--engine", "batch", "--no-monitor-mem", "-V", *extra,
+        ])
+        wall = time.perf_counter() - t0
+        n_sorted, n_rows, n_plan = _counts()
+        launches["sorted"] += n_sorted
+        launches["rows"] += n_rows
+        launches["plan"] += n_plan
+        if min(n_sorted, n_rows, n_plan) <= 0 or ts.generic_launches:
+            raise AssertionError(
+                f"phase 6 {what}: kernel launches {n_sorted} sorted + {n_rows} "
+                f"per-row + {n_plan} plan, {ts.generic_launches} generic"
             )
-            if not extra and thr == 0.3:
-                rel = (got["n_clusters"] - PORT_COUNTS[thr]) / PORT_COUNTS[thr]
-                say(f"phase 6 a: count against the resident fit's: rel diff {rel:+.5%}")
+        plain.check(f"the command line ({what})")
+        got = _check_run_dir(out_dir, fps, thr, what)
+        t = got["timings"]
+        peak = got["config"]["device_memory"]["peak_bytes_in_use"]
+        parts = ", ".join(f"{k} {v:.2f} s" for k, v in t.items() if k != "total")
+        say(
+            f"phase 6 {what}: {got['n_clusters']} clusters (resident fit of phase 4: "
+            f"{PORT_COUNTS[thr]}); total {t['total']:.2f} s of {wall:.2f} s in "
+            f"main(): {parts}; resident-input fit of phase 4 {fit_walls[thr]:.2f} s; "
+            f"kernel launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan "
+            f"(0 generic); peak {peak / 2**30:.2f} GiB allocated; device "
+            f"{got['config']['device']} {got['config']['accelerators']}"
+        )
+        if not extra and thr == 0.3:
+            rel = (got["n_clusters"] - PORT_COUNTS[thr]) / PORT_COUNTS[thr]
+            say(f"phase 6 a: count against the resident fit's: rel diff {rel:+.5%}")
 
-        small = tmp / "small.npy"
-        np.save(small, make_fake_fingerprints(20_000, N_FEATURES, seed=SEED))
-        files = {}
-        for device in ("cpu", "cuda"):
-            out_dir = tmp / f"out-d-{device}"
-            t0 = time.perf_counter()
-            cli_main([
-                "run", str(small), "-o", str(out_dir), "-t", "0.3", "--engine", "batch",
-                "--batch-size", "1024", "--no-monitor-mem", "-V", "--device", device,
-            ])
-            files[device] = [
-                (out_dir / name).read_bytes()
-                for name in ("clusters.pkl", "cluster-centroids-packed.pkl")
-            ]
-            say(f"phase 6 d: 20k fps through the command line on {device} in {time.perf_counter() - t0:.2f} s")
-        if files["cpu"] != files["cuda"]:
-            raise AssertionError("phase 6 d: CPU and CUDA runs wrote different pickles")
-        say("phase 6 d: clusters.pkl and cluster-centroids-packed.pkl byte-equal on CPU and CUDA")
-    return launches
+    small = tmp / "small.npy"
+    np.save(small, make_fake_fingerprints(20_000, N_FEATURES, seed=SEED))
+    files = {}
+    for device in ("cpu", "cuda"):
+        out_dir = tmp / f"out-d-{device}"
+        t0 = time.perf_counter()
+        cli_main([
+            "run", str(small), "-o", str(out_dir), "-t", "0.3", "--engine", "batch",
+            "--batch-size", "1024", "--no-monitor-mem", "-V", "--device", device,
+        ])
+        files[device] = [
+            (out_dir / name).read_bytes()
+            for name in ("clusters.pkl", "cluster-centroids-packed.pkl")
+        ]
+        say(f"phase 6 d: 20k fps through the command line on {device} in {time.perf_counter() - t0:.2f} s")
+    if files["cpu"] != files["cuda"]:
+        raise AssertionError("phase 6 d: CPU and CUDA runs wrote different pickles")
+    say("phase 6 d: clusters.pkl and cluster-centroids-packed.pkl byte-equal on CPU and CUDA")
+    return launches, tmp / "out-a"
 
 
 class _MergeSearchCheck:
@@ -1692,6 +1712,152 @@ def phase_side_ops(packed_centroids: np.ndarray) -> None:
     )
 
 
+# Phase 10: the clusters of the run directory that summary and the
+# embeddings analyse; the rows per cluster of the cut that the t-SNE embeds
+# on the card (the top 20 clusters of the 1M t = 0.3 run hold 193,964 rows,
+# and the exact t-SNE's (N, N) float32 matrices would be 140 GiB each), and
+# of the cut on which it is held to the CPU's
+TOP = 20
+TSNE_PER_CLUSTER = 1000
+TSNE_CHECK_PER_CLUSTER = 100
+
+
+def _cli_exit(argv) -> tuple[int, str, str]:
+    r"""``cli.main(argv)`` in this process: its exit code, standard output
+    and standard error."""
+    import contextlib
+    import io
+
+    from bblean_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            cli_main(argv)
+        except SystemExit as exc:
+            code = exc.code if isinstance(exc.code, int) else 1
+    return code, out.getvalue(), err.getvalue()
+
+
+def _has(module: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+def phase_analysis(run_dir: Path) -> None:
+    r"""Phase 10: ``summary``, the PCA and t-SNE embeddings, and the
+    commands whose optional packages the card's machine may lack, on the
+    run directory of phase 6 (a)."""
+    import pickle
+
+    from bblean_tpu_torch import plotting
+    from bblean_tpu_torch.analysis import cluster_analysis
+
+    t_phase = time.perf_counter()
+    csv = run_dir / "metrics.csv"
+    t0 = time.perf_counter()
+    code, out, err = _cli_exit([
+        "summary", str(run_dir), "--top", str(TOP), "--chi", "--dbi", "--dunn",
+        "--dump-metrics", str(csv),
+    ])
+    wall = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"phase 10 summary exited {code}: {err}")
+    want = [f"Total fingerprints: {N_FPS:,}", f"Total clusters: {PORT_COUNTS[0.3]:,}"]
+    for line in want + ["CHI (higher better)", "DBI (lower better)", "Dunn (higher better)"]:
+        if line not in out:
+            raise AssertionError(f"phase 10 summary did not print {line!r}:\n{out}")
+    rows = csv.read_text().splitlines()
+    if rows[0] != "labels,sizes,isim" or len(rows) != TOP + 1:
+        raise AssertionError(f"phase 10 summary's metrics file is {rows[:2]}... ({len(rows)} lines)")
+    text = [ln for ln in out.splitlines() if ln.startswith(("Total", "Singletons", "Cluster sizes", "CHI", "DBI", "Dunn"))]
+    say(f"phase 10 summary --top {TOP} --chi --dbi --dunn --dump-metrics: {wall:.2f} s in main(); " + "; ".join(text))
+
+    with open(run_dir / "clusters.pkl", "rb") as f:
+        clusters = pickle.load(f)
+    fps_file = sorted((run_dir / "input-fps").glob("*.npy"))[0]
+    t0 = time.perf_counter()
+    analysis = cluster_analysis(clusters, fps=fps_file, top=TOP)
+    n_rows = int(sum(analysis.sizes))
+    say(
+        f"phase 10 cluster_analysis of the top {TOP} clusters: {n_rows} rows (sizes "
+        f"{analysis.sizes[0]} .. {analysis.sizes[-1]}) in {time.perf_counter() - t0:.2f} s"
+    )
+    t0 = time.perf_counter()
+    pca = plotting.pca_embedding(analysis)
+    pca_wall = time.perf_counter() - t0
+    if pca.shape != (n_rows, 2) or not np.isfinite(pca).all():
+        raise AssertionError(f"phase 10: the PCA embedding is {pca.shape}, or not finite")
+    say(
+        f"phase 10 PCA embedding of {n_rows} rows x {N_FEATURES} bits (host, the port's copy "
+        f"of scikit-learn's randomized solver): {pca_wall:.2f} s, finite; the exact t-SNE "
+        f"of as many rows would hold (N, N) float32 matrices of {n_rows**2 * 4 / 2**30:.1f} GiB"
+    )
+    cut = cluster_analysis([c[:TSNE_PER_CLUSTER] for c in clusters[:TOP]], fps=fps_file, top=TOP)
+    n_cut = int(sum(cut.sizes))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    emb, tsne_wall = _timed(lambda: plotting.tsne_embedding(cut, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if emb.shape != (n_cut, 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"phase 10: the t-SNE embedding is {emb.shape}, or not finite")
+    say(
+        f"phase 10 t-SNE embedding of {n_cut} rows (the first {TSNE_PER_CLUSTER} of each top "
+        f"cluster; PCA to 50 on the host, 750 iterations on the card): {tsne_wall:.2f} s, peak "
+        f"{peak:.2f} GiB allocated on the card; finite, spread {emb.std(0)[0]:.3f} x "
+        f"{emb.std(0)[1]:.3f}"
+    )
+    cut = [c[:TSNE_CHECK_PER_CLUSTER] for c in clusters[:TOP]]
+    small = cluster_analysis(cut, fps=fps_file, top=TOP)
+    a = plotting.tsne_embedding(small, n_iter=5, device="cuda")
+    b = plotting.tsne_embedding(small, n_iter=5, device="cpu")
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    say(
+        f"phase 10 t-SNE CPU against CUDA ({len(a)} rows: the first "
+        f"{TSNE_CHECK_PER_CLUSTER} of each top cluster), 5 iterations: largest difference "
+        f"over the embedding's scale {rel:.2e} (held to 1e-3)"
+    )
+    if rel > 1e-3:
+        raise AssertionError(f"phase 10: t-SNE after 5 iterations is {rel} of its scale off the CPU's")
+
+    code, out, err = _cli_exit(["plot-tsne", str(run_dir), "--top", str(TOP)])
+    if _has("matplotlib"):
+        if code != 0 or not (run_dir / "tsne.png").is_file():
+            raise AssertionError(f"phase 10 plot-tsne exited {code}: {err}")
+        say("phase 10 plot-tsne: matplotlib is installed; wrote tsne.png")
+    else:
+        if code != 1 or "matplotlib" not in err:
+            raise AssertionError(f"phase 10 plot-tsne without matplotlib exited {code}: {err}")
+        say(f"phase 10 plot-tsne without matplotlib: exit 1, {err.strip()!r}")
+    smi = run_dir / "mols.smi"
+    smi.write_text("CCO\nCCC\n")
+    code, out, err = _cli_exit(["fps-from-smiles", str(smi), "-o", str(run_dir / "smi-out")])
+    if _has("rdkit"):
+        if code != 0 or not (run_dir / "smi-out" / "fps.npy").is_file():
+            raise AssertionError(f"phase 10 fps-from-smiles exited {code}: {err}")
+        say("phase 10 fps-from-smiles: RDKit is installed; wrote fps.npy")
+    else:
+        if code != 1 or "RDKit" not in err:
+            raise AssertionError(f"phase 10 fps-from-smiles without RDKit exited {code}: {err}")
+        say(f"phase 10 fps-from-smiles without RDKit: exit 1, {err.strip()!r}")
+    from importlib import metadata
+
+    code, out, err = _cli_exit(["--version"])
+    try:
+        version = metadata.version("bblean-tpu")
+    except metadata.PackageNotFoundError:
+        if code != 1 or "not installed" not in err:
+            raise AssertionError(f"phase 10 --version exited {code}: {out} {err}")
+        say(f"phase 10 --version (distribution not installed here): exit 1, {err.strip()!r}")
+    else:
+        if code != 0 or out.strip() != f"bb-torch, version {version}":
+            raise AssertionError(f"phase 10 --version exited {code}: {out} {err}")
+        say(f"phase 10 --version: {out.strip()!r}")
+    say(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _kernel_record(name, replaces, launches, phase) -> dict:
     r"""One kernel's entry of the JSON line: times, bound and share at the
     "fit" case, the shape of the fit's average launch."""
@@ -1733,11 +1899,36 @@ def _only_bitbirch() -> None:
         say("phase 9 launches:", phase_bitbirch(fps, plain))
 
 
+def _only_analysis() -> None:
+    r"""Phase 1, the command line's run (a) of phase 6 and phase 10 alone
+    (no kernels line, no result line)."""
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+
+    phase_device()
+    fps = make_fake_fingerprints(N_FPS, N_FEATURES, seed=SEED)
+    with tempfile.TemporaryDirectory(prefix="bb-smoke-") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "fps.npy", fps)
+        run_dir = tmp / "out-a"
+        _reset_counts()
+        code, out, err = _cli_exit([
+            "run", str(tmp / "fps.npy"), "-o", str(run_dir), "-t", "0.3",
+            "--engine", "batch", "--no-monitor-mem", "-V",
+        ])
+        n_clusters = json.loads((run_dir / "config.json").read_text())["n_clusters"] if code == 0 else None
+        if code != 0 or n_clusters != PORT_COUNTS[0.3] or min(_counts()) <= 0:
+            raise AssertionError(f"run (a) exited {code} with {n_clusters} clusters, launches {_counts()}: {err}")
+        say(f"phase 6 a: {n_clusters} clusters, launches {_launch_text(_counts())}")
+        phase_analysis(run_dir)
+
+
 def main() -> None:
     if sys.argv[1:] == ["--only", "sharded"]:
         return _only_sharded()
     if sys.argv[1:] == ["--only", "bitbirch"]:
         return _only_bitbirch()
+    if sys.argv[1:] == ["--only", "analysis"]:
+        return _only_analysis()
     kind = phase_device()
     kern = phase_kernel()
     rows = phase_row_kernel()

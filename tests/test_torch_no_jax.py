@@ -38,6 +38,9 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch.engine.exact, bblean_tpu_torch.engine.native\n"
         "import bblean_tpu_torch.tree, bblean_tpu_torch.metrics\n"
         "import bblean_tpu_torch.multiround\n"
+        "import bblean_tpu_torch.smiles, bblean_tpu_torch.analysis, bblean_tpu_torch._pca\n"
+        "import bblean_tpu_torch.plotting, bblean_tpu_torch.benchmarks\n"
+        "import bblean_tpu_torch.benchmarks.scale_10m, bblean_tpu_torch.benchmarks.route_cost\n"
         "from bblean_tpu_torch import BitBirch, set_merge\n"
         "import chip_smoke, chip_profile, chip_ab, bench_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -276,3 +279,121 @@ def test_bench_cuda_refuses_to_run_without_a_card() -> None:
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "no result" in proc.stderr
+
+
+# Modules of the analysis side and the benchmarks, which must import on a
+# machine without the optional packages of the JAX package's analysis side
+NEW_MODULES = [
+    "bblean_tpu_torch.analysis", "bblean_tpu_torch.plotting", "bblean_tpu_torch._pca",
+    "bblean_tpu_torch.cli", "bblean_tpu_torch.smiles",
+    "bblean_tpu_torch.benchmarks.scale_10m", "bblean_tpu_torch.benchmarks.route_cost",
+]
+BLOCKED = [
+    "jax", "bblean_tpu", "matplotlib", "seaborn", "sklearn", "pandas", "click",
+    "rich", "rdkit",
+]
+
+
+def test_new_modules_import_without_the_optional_packages() -> None:
+    r"""With ``jax``, ``bblean_tpu``, matplotlib, seaborn, scikit-learn,
+    pandas, click, rich and RDKit blocked (a finder first on
+    ``sys.meta_path`` raises ``ImportError`` for each; a ``None`` entry in
+    ``sys.modules`` would do the same, but scipy reads
+    ``sys.modules["jax"]`` and fails on ``None``), the analysis side, the
+    command line and both benchmark modules import, and the embeddings
+    run."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {BLOCKED!r}:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for mod in {NEW_MODULES!r}:\n"
+        "    __import__(mod)\n"
+        "import numpy as np\n"
+        "from bblean_tpu_torch import plotting\n"
+        "from bblean_tpu_torch.analysis import cluster_analysis\n"
+        "from bblean_tpu_torch.fingerprints import make_fake_fingerprints, _HAS_RDKIT\n"
+        "fps = make_fake_fingerprints(60, seed=1)\n"
+        "ca = cluster_analysis([list(range(30)), list(range(30, 60))], fps=fps)\n"
+        "assert plotting.pca_embedding(ca).shape == (60, 2)\n"
+        "assert plotting.tsne_embedding(ca, n_iter=3, device='cpu').shape == (60, 2)\n"
+        "assert not _HAS_RDKIT\n"
+        "try:\n"
+        "    plotting.summary_plot(ca)\n"
+        "except ImportError as e:\n"
+        "    assert 'matplotlib' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('drew without matplotlib')\n"
+        f"assert not [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _after_docstring(path: Path) -> str:
+    r"""A module's source after its docstring."""
+    src = path.read_text()
+    return "\n".join(src.splitlines()[ast.parse(src).body[0].end_lineno :])
+
+
+@pytest.mark.parametrize("name", ["smiles.py", "analysis.py"])
+def test_copied_modules_equal_their_originals(name) -> None:
+    r"""``smiles.py`` and ``analysis.py`` are copies: below the module
+    docstring the same text as the JAX package's, apart from the package
+    name."""
+    port = _after_docstring(ROOT / "bblean_tpu_torch" / name)
+    orig = _after_docstring(ROOT / "bblean_tpu" / name)
+    assert port.replace("bblean_tpu_torch", "bblean_tpu") == orig
+
+
+def test_copied_featurization_equals_the_original() -> None:
+    r"""The SMILES half of ``fingerprints.py`` is a copy: each function and
+    worker class has the JAX package's source, apart from the package
+    name."""
+    import inspect
+
+    from bblean_tpu import fingerprints as jfp
+    from bblean_tpu_torch import fingerprints as tfp
+
+    for name in (
+        "_require_rdkit", "_get_generator", "_get_sanitize_flags", "fps_from_smiles",
+        "_FingerprintFileCreator", "_FingerprintArrayFiller",
+    ):
+        port = inspect.getsource(getattr(tfp, name)).replace("bblean_tpu_torch", "bblean_tpu")
+        assert port == inspect.getsource(getattr(jfp, name)), name
+    assert tfp._HAS_RDKIT == jfp._HAS_RDKIT
+
+
+@pytest.mark.parametrize("module", ["scale_10m", "route_cost"])
+def test_benchmarks_refuse_to_run_without_a_card(module) -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is available")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"bblean_tpu_torch.benchmarks.{module}"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no result" in proc.stderr
+
+
+def test_help_lists_every_command_of_bb(capsys) -> None:
+    r"""``bb-torch --help`` lists every command ``bb --help`` lists."""
+    from bblean_tpu.cli import main as jax_main
+    from bblean_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--help"])
+    assert exc.value.code == 0
+    text = capsys.readouterr().out
+    listed = {line.split()[0] for line in text.splitlines() if line.startswith("    ") and line.split()}
+    assert set(jax_main.commands) <= listed, set(jax_main.commands) - listed
+    assert "--version" in text
