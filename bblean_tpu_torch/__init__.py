@@ -48,4 +48,6 @@ by one package does not load in the other.
 from bblean_tpu_torch.engine.batch import BatchState, BatchTree
 from bblean_tpu_torch.tree import BitBirch, set_merge
 
-__all__ = ["BitBirch", "set_merge", "BatchTree", "BatchState"]
+__version__ = "0.1.0"
+
+__all__ = ["BitBirch", "set_merge", "BatchTree", "BatchState", "__version__"]

@@ -6,3 +6,7 @@ r"""The PyTorch port's engines.
 - ``bblean_tpu_torch.engine.batch`` — the level-synchronous batched engine on
   the device (``BatchTree``).
 """
+
+from bblean_tpu_torch.engine.exact import ExactTree
+
+__all__ = ["ExactTree"]

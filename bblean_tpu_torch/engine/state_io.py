@@ -16,6 +16,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from bblean_tpu_torch._device import DeviceLike, require_device
 from bblean_tpu_torch.engine.batch import BatchState
 
 __all__ = [
@@ -32,13 +33,17 @@ _DTYPES = {
 
 
 def state_from_numpy(
-    arrays: dict[str, np.ndarray], device: str | torch.device = "cpu"
+    arrays: dict[str, np.ndarray], device: DeviceLike = "cuda"
 ) -> BatchState:
     r"""Build a :class:`BatchState` on ``device`` from numpy arrays keyed by
-    field name (uint8 tiles, int8 routing centroids, int32 elsewhere)."""
+    field name (uint8 tiles, int8 routing centroids, int32 elsewhere).
+
+    ``device`` defaults to the CUDA device and raises when there is none
+    (ask for ``"cpu"`` explicitly)."""
     missing = set(BatchState._fields) - set(arrays)
     if missing:
         raise KeyError(f"state arrays lack fields {sorted(missing)}")
+    device = require_device(device)
     return BatchState(
         **{
             f: torch.tensor(
@@ -58,14 +63,14 @@ def state_to_numpy(state: BatchState) -> dict[str, np.ndarray]:
 
 def states_from_stacked(
     arrays: dict[str, np.ndarray],
-    devices: tp.Sequence[str | torch.device] | None = None,
+    devices: tp.Sequence[DeviceLike] | None = None,
 ) -> list[BatchState]:
     r"""Cut a stacked state (every field with a leading shard axis) into one
     :class:`BatchState` per shard, shard ``i`` on ``devices[i]`` (default:
-    all on the CPU)."""
+    all on the CUDA device, which raises when there is none)."""
     n = len(np.asarray(arrays["num"]))
     if devices is None:
-        devices = ["cpu"] * n
+        devices = ["cuda"] * n
     if len(devices) != n:
         raise ValueError(f"{n} stacked shards for {len(devices)} devices")
     return [

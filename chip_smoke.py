@@ -109,7 +109,18 @@ as the phase ends:
    ``fps-from-smiles`` exits 1 naming RDKit where RDKit is not installed,
    and ``--version`` prints the installed version (or exits 1 saying the
    distribution is not installed).  ``python3 chip_smoke.py --only
-   analysis`` runs phase 1, the command line's run (a) and phase 10 alone.
+   analysis`` runs phase 1, the command line's run (a) and phase 10 alone;
+11. the four examples (``bblean_tpu_torch/examples/``) as subprocesses
+   from a temporary directory, at their full sizes, the five runs below at
+   once, each with its wall: ``quickstart``, ``best_practices`` and
+   ``dataset_splitting`` (the host engines) print exactly what the JAX
+   scripts print;
+   ``multi_device --shards 8`` on ``cuda:0`` prints the JAX script's lines
+   on its eight virtual CPU devices (8,565 clusters, worst iSIM 0.300), and
+   ``multi_device`` on its default mesh (one shard per visible card) gives
+   ``BatchTree``'s count on the same rows and settings, fitted here; both
+   ``multi_device`` runs must launch the tile-search kernels.  ``python3
+   chip_smoke.py --only examples`` runs phases 1 and 11 alone.
 
 Each main-path run (each fit, each predict, the refine, each command-line
 run) counts the kernels' launches from zero and must launch the kernels it
@@ -174,6 +185,41 @@ MULTIROUND_FILES = 8
 # The band in which the JAX package's test holds BatchTree's count to the
 # serial engine's (tests/test_batch_engine.py)
 SERIAL_BAND = (0.5, 1.3)
+# Phase 11: what the JAX package's examples print (JAX on the CPU; the
+# multi_device script on 8 virtual devices), line for line
+EXAMPLE_LINES = {
+    "quickstart": [
+        "fingerprints: (20000, 256) packed uint8 (5 MB)",
+        "7859 clusters; largest [76, 66, 65, 61, 60]",
+        "singletons: 7218 (92%)",
+        "largest cluster iSIM: 0.306",
+        "after refinement: 7185 clusters",
+        "wrote assignments.csv, tree.pkl",
+    ],
+    "best_practices": [
+        "    t  clusters   >=10    top iSIM(top)",
+        " 0.20         1      1  10000     0.235",
+        " 0.30      3931    257     57     0.313",
+        " 0.40      7189     71    268     0.400",
+        " 0.50      8841     21    238     0.500",
+        " 0.65      9817      7     33     0.651",
+        "",
+        "t=0.3: CHI=84.36 DBI=0.04 (top-20 clusters)",
+        "after refining 10 largest: 3578 clusters, top [1081 1078 1033]",
+    ],
+    "dataset_splitting": [
+        "train 24000 / test 6000 (20.0%)",
+        "max train-similarity of test mols: median 0.374 (random split: 0.409)",
+        "X_train (24000, 256), y_train (24000,)",
+    ],
+    "multi_device": [
+        "8565 clusters over 20000 rows",
+        "largest: [688, 581, 572, 546, 475]",
+        "worst multi-member cluster iSIM: 0.300 (threshold 0.30)",
+    ],
+}
+# The multi_device example's data and settings, for BatchTree's count
+MULTI_DEVICE_FIT = dict(rows=20_000, seed=3, threshold=0.3, batch_size=512)
 FIT_SETTINGS = {
     0.3: dict(initial_capacity=1 << 19, ls_capacity=1 << 18),
     0.65: dict(initial_capacity=1 << 21, ls_capacity=1 << 18),
@@ -428,15 +474,16 @@ def phase_kernel() -> dict:
             timing[key] = _time_case(kernel, plain, _bound(row_group, pending, t_pk.shape))
             line += _timing_text(timing[key])
         say(line)
-        if m == 8192 and fc == 256 and f8 == 256 and conc == "one" and not kind:
+        if m == 8192 and f8 == 256 and conc == "one" and not kind:
             say(_int_mm_line(row_pk, t_pk))
     return {"max_abs_err": max_err, "timing": timing}
 
 
 def _int_mm_line(row_pk, t_pk) -> str:
     r"""torch._int_mm of the unpacked int8 rows (8192 x 2048) against one
-    group's unpacked tile (2048 x 256): intersections only (no Tanimoto,
-    no argmax, one tile for every row), so not the same function."""
+    group's unpacked tile (2048 x Fc, Fc = 256 or 512): intersections only
+    (no Tanimoto, no argmax, one tile for every row), so not the same
+    function."""
     from bblean_tpu_torch.engine.batch import unpack_fingerprints_device
 
     f = row_pk.shape[1] * 8
@@ -1858,6 +1905,148 @@ def phase_analysis(run_dir: Path) -> None:
     say(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Runs an example as ``python -m`` runs it, then prints as its last line
+# the tile-search kernels' launches in that process and its wall from the
+# interpreter's first statement (imports included)
+_EXAMPLE_WRAPPER = (
+    "import time\n"
+    "t0 = time.perf_counter()\n"
+    "import runpy, sys\n"
+    "from bblean_tpu_torch.ops import tile_search as ts\n"
+    "name = sys.argv[1]\n"
+    "sys.argv = [name, *sys.argv[2:]]\n"
+    "runpy.run_module('bblean_tpu_torch.examples.' + name, run_name='__main__')\n"
+    "print('launches', ts.launches, ts.row_launches, ts.plan_launches,\n"
+    "      time.perf_counter() - t0)\n"
+)
+
+
+def _start_example(name: str, args: list[str], cwd: Path) -> subprocess.Popen:
+    r"""Start the example ``name`` with ``args`` in ``cwd``, through the
+    wrapper above."""
+    cwd.mkdir()
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    return subprocess.Popen(
+        [sys.executable, "-c", _EXAMPLE_WRAPPER, name, *args], cwd=cwd, env=env,
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    )
+
+
+def _finish_example(what: str, proc: subprocess.Popen) -> tuple[list[str], tuple[int, ...], float]:
+    r"""The example's printed lines, its kernel launches and its wall."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11 {what} exited {proc.returncode}:\n{err[-4000:]}")
+    *lines, last = out.splitlines()
+    tag, *counts, wall = last.split()
+    if tag != "launches":
+        raise AssertionError(f"phase 11 {what}: the wrapper's line is missing ({last!r})")
+    return lines, tuple(int(c) for c in counts), float(wall)
+
+
+def _held_lines(what: str, got: list[str], want: list[str]) -> None:
+    if got != want:
+        raise AssertionError(f"phase 11 {what} printed {got}, the JAX script {want}")
+
+
+def phase_examples() -> dict:
+    r"""Phase 11: the four examples as subprocesses, on the card."""
+    from bblean_tpu_torch import BatchTree
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+
+    t_phase = time.perf_counter()
+    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    with tempfile.TemporaryDirectory(prefix="bb-smoke-examples-") as tmp:
+        tmp = Path(tmp)
+        # The five runs at once: the host engines use one core each, and
+        # the two multi_device runs share the card
+        host = ("quickstart", "best_practices", "dataset_splitting")
+        args = {name: [] for name in host}
+        args["md8"] = ["multi_device", "--device", "cuda:0", "--shards", "8"]
+        args["md"] = ["multi_device"]
+        started = {}
+        try:
+            for key, argv in args.items():
+                name, *rest = argv or [key]
+                started[key] = _start_example(name, rest, tmp / key)
+            for name in host:
+                lines, counts, wall = _finish_example(name, started[name])
+                _held_lines(name, lines, EXAMPLE_LINES[name])
+                if sum(counts):
+                    raise AssertionError(f"phase 11 {name}: a host example launched a device kernel")
+                say(
+                    f"phase 11 {name}: {wall:.2f} s (the five runs at once), "
+                    f"every line equal to the JAX script's: {' | '.join(lines[-2:])}"
+                )
+            if not (tmp / "quickstart" / "assignments.csv").is_file():
+                raise AssertionError("phase 11 quickstart wrote no assignments.csv")
+
+            name = "multi_device --shards 8 on cuda:0"
+            lines, counts, wall = _finish_example(name, started["md8"])
+            if counts[0] <= 0 or counts[2] <= 0:
+                raise AssertionError(f"phase 11 {name}: launches {counts}")
+            want = f"devices: 8 x {torch.cuda.get_device_name(0)}"
+            if lines[0] != want:
+                raise AssertionError(f"phase 11 {name}: {lines[0]!r}, not {want!r}")
+            _held_lines(name, lines[1:], EXAMPLE_LINES["multi_device"])
+            say(
+                f"phase 11 {name}: {wall:.2f} s, every line but the device equal to the JAX "
+                f"script's on 8 CPU devices: {' | '.join(lines[1:])}; kernel launches "
+                f"{_launch_text(counts)}"
+            )
+
+            name = "multi_device (default mesh)"
+            lines, counts, wall = _finish_example(name, started["md"])
+            if counts[0] <= 0 or counts[2] <= 0:
+                raise AssertionError(f"phase 11 {name}: launches {counts}")
+            n_cards = torch.cuda.device_count()
+            got = int(lines[1].split()[0])
+            fps = make_fake_fingerprints(
+                MULTI_DEVICE_FIT["rows"], n_features=N_FEATURES, seed=MULTI_DEVICE_FIT["seed"],
+            )
+            batch = MULTI_DEVICE_FIT["batch_size"]
+            _reset_counts()
+            t0 = time.perf_counter()
+            tree = BatchTree(
+                N_FEATURES, threshold=MULTI_DEVICE_FIT["threshold"], batch_size=batch,
+                route_block=512, initial_capacity=2 * batch + 2, device="cuda",
+            )
+            tree.fit_packed(fps, range(len(fps)))
+            ncl = tree.num_clusters
+            tree_wall = time.perf_counter() - t0
+            for k, c in zip(("sorted", "rows", "plan"), _counts()):
+                launches[k] += c
+            say(
+                f"phase 11 {name}: {wall:.2f} s, {lines[0]!r}, {got} clusters; BatchTree on "
+                f"the same rows and settings: {ncl} clusters in {tree_wall:.2f} s (kernel "
+                f"launches {_launch_text(_counts())}); the example's launches {_launch_text(counts)}"
+            )
+            if lines[0] != f"devices: {n_cards} x {torch.cuda.get_device_name(0)}":
+                raise AssertionError(f"phase 11 {name}: the mesh is not every visible card")
+            if n_cards == 1 and got != ncl:
+                raise AssertionError(f"phase 11 {name}: one shard gave {got} clusters, BatchTree {ncl}")
+            if min(_counts()) <= 0:
+                raise AssertionError("phase 11: BatchTree did not launch every kernel")
+        finally:
+            for proc in started.values():  # a failed check stops the runs still going
+                proc.kill()
+    say(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _only_examples() -> None:
+    r"""Phases 1 and 11 alone (no kernels line, no result line)."""
+    phase_device()
+    with _PlainOnCuda() as plain:
+        say("phase 11 launches:", phase_examples())
+        plain.check("phase 11")
+
+
 def _kernel_record(name, replaces, launches, phase) -> dict:
     r"""One kernel's entry of the JSON line: times, bound and share at the
     "fit" case, the shape of the fit's average launch."""
@@ -1923,18 +2112,29 @@ def _only_analysis() -> None:
 
 
 def main() -> None:
+    # A termination unwinds like an error, so every started process is stopped
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda signum, _frame: sys.exit(128 + signum))
     if sys.argv[1:] == ["--only", "sharded"]:
         return _only_sharded()
     if sys.argv[1:] == ["--only", "bitbirch"]:
         return _only_bitbirch()
     if sys.argv[1:] == ["--only", "analysis"]:
         return _only_analysis()
+    if sys.argv[1:] == ["--only", "examples"]:
+        return _only_examples()
     kind = phase_device()
     kern = phase_kernel()
     rows = phase_row_kernel()
     plan = phase_plan()
     phase_cpu_vs_cuda()
     full = phase_full_size()
+    with _PlainOnCuda() as plain:
+        examples = phase_examples()
+        plain.check("phase 11")
+    for k, c in examples.items():
+        full["launches"][k] += c
     say(json.dumps({"kernels": [
         _kernel_record(
             "tile_search_sorted", "bblean_tpu/ops/pallas_search2.py:61",

@@ -20,7 +20,11 @@ import jax.numpy as jnp
 from bblean_tpu.engine import batch as jb
 from bblean_tpu.fingerprints import make_fake_fingerprints
 from bblean_tpu_torch.engine import batch as tb
-from bblean_tpu_torch.engine.state_io import state_from_numpy, state_to_numpy
+from bblean_tpu_torch.engine.state_io import (
+    state_from_numpy,
+    state_to_numpy,
+    states_from_stacked,
+)
 
 torch.set_num_threads(2)
 
@@ -74,11 +78,26 @@ def _scalars():
 
 def test_state_io_round_trips_a_jax_state(captured) -> None:
     _fps, state, _jr, _tr = captured
-    port = state_from_numpy(state)
+    port = state_from_numpy(state, "cpu")
     assert tuple(port._fields) == tuple(jb.BatchState._fields)
     assert port.t_pk.dtype == torch.uint8 and port.g_cent.dtype == torch.int8
     assert port.ls.dtype == torch.int32 and port.num.shape == ()
     _assert_states_equal(state, state_to_numpy(port))
+
+
+def test_state_io_defaults_to_the_card(captured) -> None:
+    r"""With no device named, both loaders put the state on the CUDA device:
+    without a card they raise, and nothing gives way to the CPU."""
+    _fps, state, _jr, _tr = captured
+    stacked = {f: np.stack([v, v]) for f, v in state.items()}
+    if torch.cuda.is_available():
+        assert state_from_numpy(state).t_pk.device.type == "cuda"
+        assert {s.n.device.type for s in states_from_stacked(stacked)} == {"cuda"}
+        return
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        state_from_numpy(state)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        states_from_stacked(stacked)
 
 
 def test_init_and_grow_state_match_jax() -> None:
@@ -127,7 +146,7 @@ def one_round(captured):
     )
     tpending = trows[1] > 0
     tgroup = torch.from_numpy(np.array(jgroup))
-    tstate = state_from_numpy(state)
+    tstate = state_from_numpy(state, "cpu")
     order, skey, items = tb.sorted_search_plan(
         torch.where(tpending, tgroup, tstate.g_ls.shape[0] - 1)
     )
@@ -173,7 +192,7 @@ def test_insert_round_in_call_search_matches_jax(captured) -> None:
         criterion="diameter", use_pallas=False,
     )
     tout = tb._insert_round(
-        state_from_numpy(state), torch.from_numpy(pending),
+        state_from_numpy(state, "cpu"), torch.from_numpy(pending),
         torch.full((M,), -1, dtype=torch.int32), torch.from_numpy(strikes),
         torch.from_numpy(group), *trows, tthr, ttol, criterion="diameter",
     )
@@ -192,7 +211,7 @@ def test_refresh_touched_matches_jax(captured, one_round) -> None:
         jnp.asarray(row_n),
     )
     got = tb._refresh_touched(
-        state_from_numpy(jstate), torch.from_numpy(jassigned),
+        state_from_numpy(jstate, "cpu"), torch.from_numpy(jassigned),
         torch.from_numpy(row_ls), torch.from_numpy(row_n),
     )
     _assert_states_equal(_jax_np(ref), state_to_numpy(got))
@@ -208,7 +227,7 @@ def test_batch_step_matches_jax(captured, narrow) -> None:
         narrow=narrow, **kw,
     )
     tstate, tassigned, tenc = tb._batch_step_impl(
-        state_from_numpy(state), *trows, tthr, ttol, narrow=narrow, **kw,
+        state_from_numpy(state, "cpu"), *trows, tthr, ttol, narrow=narrow, **kw,
     )
     _assert_states_equal(_jax_np(jstate), state_to_numpy(tstate))
     np.testing.assert_array_equal(tassigned.numpy(), np.asarray(jassigned))
@@ -223,7 +242,7 @@ def test_split_groups_matches_jax(captured) -> None:
     fanout = int(np.sort(counts)[-3])  # the two largest groups are above it
     assert (counts > fanout).sum() >= 2
     jstate, jleft = jb._split_topk_device(_jax_state(state), k=8, fanout=fanout)
-    tstate, tleft = tb._split_topk_impl(state_from_numpy(state), k=8, fanout=fanout)
+    tstate, tleft = tb._split_topk_impl(state_from_numpy(state, "cpu"), k=8, fanout=fanout)
     _assert_states_equal(_jax_np(jstate), state_to_numpy(tstate))
     assert int(tleft) == int(jleft)
 
@@ -244,7 +263,7 @@ def test_scan_fit_packed_matches_jax(captured) -> None:
         jnp.int32(2500 - 2048), jthr, jtol, use_pallas=False, **kw,
     )
     tstate, tassigned, tencs = tb._scan_fit_packed_impl(
-        state_from_numpy(state), torch.from_numpy(chunk), 0, 2500 - 2048,
+        state_from_numpy(state, "cpu"), torch.from_numpy(chunk), 0, 2500 - 2048,
         tthr, ttol, **kw,
     )
     _assert_states_equal(_jax_np(jstate), state_to_numpy(tstate))
@@ -279,7 +298,7 @@ def test_reconstruct_ls_chunk_matches_jax(captured, start) -> None:
     _fps, state, _jr, _tr = captured
     assert 1500 + 1024 > state["n"].shape[0] > int(state["num"])
     ref = jb._reconstruct_ls_chunk(_jax_state(state), start, 1024, 2048)
-    got = tb._reconstruct_ls_chunk(state_from_numpy(state), start, 1024, 2048)
+    got = tb._reconstruct_ls_chunk(state_from_numpy(state, "cpu"), start, 1024, 2048)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
@@ -289,7 +308,7 @@ def test_pool_dead_rows_matches_jax(captured) -> None:
     leaky["num_ls"] = np.asarray(int(state["num_ls"]) + 3, np.int32)  # 3 dead rows
     for arrays, dead in ((state, 0), (leaky, 3)):
         ref = int(jb._pool_dead_rows(_jax_state(arrays)))
-        got = int(tb._pool_dead_rows(state_from_numpy(arrays)))
+        got = int(tb._pool_dead_rows(state_from_numpy(arrays, "cpu")))
         assert got == ref == dead
 
 
@@ -306,7 +325,7 @@ def test_predict_step_matches_jax(captured, m) -> None:
         n_features=2048, block=M, use_pallas=False,
     )
     got = tb._predict_step(
-        state_from_numpy(state), torch.from_numpy(packed),
+        state_from_numpy(state, "cpu"), torch.from_numpy(packed),
         torch.from_numpy(valid), int(state["g_num"]), n_features=2048, block=M,
     )
     for a, b in zip(ref, got):

@@ -41,6 +41,8 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch.smiles, bblean_tpu_torch.analysis, bblean_tpu_torch._pca\n"
         "import bblean_tpu_torch.plotting, bblean_tpu_torch.benchmarks\n"
         "import bblean_tpu_torch.benchmarks.scale_10m, bblean_tpu_torch.benchmarks.route_cost\n"
+        "import bblean_tpu_torch.examples.quickstart, bblean_tpu_torch.examples.best_practices\n"
+        "import bblean_tpu_torch.examples.dataset_splitting, bblean_tpu_torch.examples.multi_device\n"
         "from bblean_tpu_torch import BitBirch, set_merge\n"
         "import chip_smoke, chip_profile, chip_ab, bench_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

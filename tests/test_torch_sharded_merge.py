@@ -128,7 +128,7 @@ def _assert_tables_equal(ref: dict, got: dict, shard: int) -> None:
 def test_stacked_state_round_trips(merge_rounds) -> None:
     _forest, rounds = merge_rounds
     stacked = rounds[0]["before"]
-    shards = states_from_stacked(stacked)
+    shards = states_from_stacked(stacked, ["cpu"] * 8)
     assert len(shards) == 8 and shards[3].t_pk.dtype == torch.uint8
     back = states_to_stacked(shards)
     for f in jb.BatchState._fields:
@@ -189,8 +189,8 @@ def test_merge_into_matches_jax(merge_rounds, rnd, gate_name) -> None:
     _forest, rounds = merge_rounds
     cap = rounds[rnd]
     gate, ref_state, ref_amap = cap["after"][gate_name]
-    own = states_from_stacked(cap["before"])
-    recv = states_from_stacked(cap["recv"])
+    own = states_from_stacked(cap["before"], ["cpu"] * 8)
+    recv = states_from_stacked(cap["recv"], ["cpu"] * 8)
     for i in cap["receivers"]:
         state, amap, info = ts._merge_into_impl(
             own[i], recv[i], torch.tensor(gate, dtype=torch.float32),
@@ -219,8 +219,8 @@ def test_insert_slots_with_a_partial_last_batch_matches_jax(merge_rounds) -> Non
     n_sent = cap["n_sent"][i]
     assert n_sent > 128 and n_sent % 128
     _gate, ref_state, ref_amap = cap["after"]["close"]
-    own = states_from_stacked(cap["before"])[i]
-    recv = states_from_stacked(cap["recv"])[i]
+    own = states_from_stacked(cap["before"], ["cpu"] * 8)[i]
+    recv = states_from_stacked(cap["recv"], ["cpu"] * 8)[i]
     ins = (torch.arange(recv.n.shape[0]) < recv.num) & (recv.n > 0)
     amap0 = torch.full((recv.n.shape[0],), -1, dtype=torch.int32)
     state, amap, n_ins = ts._insert_slots_impl(
