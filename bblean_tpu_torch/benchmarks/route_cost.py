@@ -1,23 +1,31 @@
 r"""The per-batch group route's cost as the group count grows, on one card.
 
 The twin of ``benchmarks/route_cost.py``.  The route
-(``engine/batch.py::_route_groups``) is an argmax Tanimoto of each of a
-step's M = 8192 rows over the live group centroids: blocks of ``block``
-groups, each an int8 GEMM (``torch._int_mm``) of the (M, F) 0/1 rows
-against the block's (block, F) 0/1 centroids plus a few elementwise ops.
-It runs once per batch step, and its blocks grow with the groups: the 10M
-fits end on 17,364 groups at t = 0.3 and 43,003 at t = 0.65.
+(``engine/batch.py::_route_groups``, ``ops/route.py::route_groups``) is
+the first argmax Tanimoto of each of a step's M = 8192 rows over the live
+group centroids, in blocks of ``block`` groups.  On the card it is one
+launch of the hand-written kernel of ``csrc/route.cu`` (an int8
+tensor-core product with the Tanimoto and the argmax in its epilogue);
+its plain version runs each block as an int8 GEMM (``torch._int_mm``) of
+the (M, F) 0/1 rows against the block's (block, F) 0/1 centroids followed
+by about eight elementwise ops.  It runs once per batch step, and its work
+grows with the groups: the 10M fits end on about 17,400 groups at t = 0.3
+and 43,300 at t = 0.65.
 
 Usage, from the repository root::
 
     python3 -m bblean_tpu_torch.benchmarks.route_cost [fps_per_s ...] [--block N]
 
-For each live group count it prints the ms per call (CUDA events, median
-of 10), the bound (2 * M * G * F int8 operations over 1,979 TOP/s or the
-bytes read and written once over 3.35 TB/s, whichever is larger; H100 SXM
-data sheet) and the call's share of it (bound / time), and, for each
-``fps_per_s`` given (a fit's measured rate), the route's share of a step
-of 8192 rows at that rate.  The last line is one JSON object with the
+For each live group count it prints, per call (CUDA events, median of 10,
+the host's dispatch included): the kernel's ms, the plain version's ms on
+the card, and ``torch._int_mm`` over the same live blocks (the product
+alone, one call; the port never calls it); the bound (2 * M * G * F int8
+operations over 1,979 TOP/s or the bytes read and written once over
+3.35 TB/s, whichever is larger; H100 SXM data sheet) and the kernel's and
+the plain version's share of it (bound / time); and, for each
+``fps_per_s`` given (a fit's measured rate), the kernel's and the plain
+version's share of a step of 8192 rows at that rate.  The kernel's routes
+must equal the plain version's.  The last line is one JSON object with the
 table.  Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -39,20 +47,35 @@ INT8_OPS_PER_S = 1.979e15
 
 
 def _bound_ms(g_live: int) -> tuple[float, str]:
-    r"""The least time for one route: rows, live centroids and both
-    popcount vectors read once, the (M,) slots written once; or the
-    GEMMs' multiply-adds at the int8 peak."""
-    n_bytes = M * F + g_live * F + 4 * M + 4 * g_live + 4 * M
+    r"""The least time for one route: rows, live centroids, both popcount
+    vectors and the pending flags read once, the (M,) groups written once;
+    or the product's multiply-adds at the int8 peak."""
+    n_bytes = M * F + g_live * F + 4 * M + 4 * g_live + M + 4 * M
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = 2.0 * M * g_live * F / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _median_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("route_cost: torch.cuda.is_available() is False; no result")
-    from bblean_tpu_torch.engine.batch import _route_groups
+    from bblean_tpu_torch.ops import route
 
     block = 1024
     if "--block" in argv:
@@ -75,34 +98,38 @@ def main(argv: list[str] | None = None) -> None:
 
     table = []
     for g_live in G_LIVE:
-        def call():
-            return _route_groups(row_cent, row_pop, g_cent, g_pops, g_live, pending, block)
-
-        call()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(10):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            call()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        ms = float(np.median(times))
+        args = (row_cent, row_pop, g_cent, g_pops, g_live, pending, block)
+        launched = route.route_launches
+        if not torch.equal(route.route_groups(*args), route.route_groups_plain(*args)):
+            raise AssertionError(f"G={g_live}: the kernel's routes differ from the plain version's")
+        if route.route_launches != launched + 1 or route.generic_launches:
+            raise AssertionError(f"G={g_live}: the route did not launch its kernel")
+        b = g_cent[: min(-(-g_live // block) * block, G_CAP)].t()
+        ms = {
+            "kernel": _median_ms(lambda: route.route_groups(*args)),
+            "plain": _median_ms(lambda: route.route_groups_plain(*args)),
+            "int_mm": _median_ms(lambda: torch._int_mm(row_cent, b)),
+        }
         bound, by = _bound_ms(g_live)
+        step = M * 1e3  # ms of a step of M rows at 1 fps/s
         row = {
-            "g_live": g_live, "blocks": -(-g_live // block), "ms": ms,
-            "bound_ms": bound, "bound_by": by, "share": bound / ms,
-            "step_share": {str(r): ms / (M / r * 1e3) for r in rates},
+            "g_live": g_live, "blocks": -(-g_live // block), "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["int_mm"], "bound_ms": bound,
+            "bound_by": by, "share": bound / ms["kernel"], "plain_share": bound / ms["plain"],
+            "step_share": {str(r): ms["kernel"] / (step / r) for r in rates},
+            "plain_step_share": {str(r): ms["plain"] / (step / r) for r in rates},
         }
         table.append(row)
         steps = "".join(
-            f"; {s:.1%} of a step at {float(r):,.0f} fps/s" for r, s in row["step_share"].items()
+            f"; of a step at {float(r):,.0f} fps/s: kernel {s:.1%}, plain "
+            f"{row['plain_step_share'][r]:.1%}"
+            for r, s in row["step_share"].items()
         )
         print(
-            f"G={g_live:6d} ({row['blocks']} blocks): {ms:8.3f} ms a call, bound "
-            f"{bound:.4f} ms ({by}), share {bound / ms:.3f}{steps}",
+            f"G={g_live:6d} ({row['blocks']} blocks): kernel {ms['kernel']:8.4f} ms, plain "
+            f"{ms['plain']:8.4f} ms, torch._int_mm {ms['int_mm']:8.4f} ms a call; bound "
+            f"{bound:.4f} ms ({by}), share kernel {row['share']:.3f} / plain "
+            f"{row['plain_share']:.3f}{steps}",
             flush=True,
         )
     print(json.dumps({"block": block, "m": M, "f": F, "routes": table}), flush=True)

@@ -4,7 +4,8 @@ The twin of ``benchmarks/scale_10m.py``: the same seed, arguments and
 ``BatchTree`` settings (tile 512, fanout 384, group capacity 2^15 below
 t = 0.5 and 2^16 from it, cluster capacity 2^23 / 2^24, linear-sum pool
 2^16), the main path ``BatchTree.fit_packed`` with both tile-search
-kernels of ``csrc/tile_search.cu`` at 512-cell tiles.
+kernels of ``csrc/tile_search.cu`` at 512-cell tiles and the route kernel
+of ``csrc/route.cu`` over up to 43k groups.
 
 Usage, from the repository root::
 
@@ -21,8 +22,9 @@ loaded, the caching allocator warmed), the timed tree runs
 
 It prints the fit's wall and fps/s, the cluster count (beside the JAX
 record's, as information), the groups, the linear-sum pool's rows, the
-tile-search kernels' launches in the fit (it fails if the sorted front end
-or the plan kernel never ran, or a launch took the generic path), the
+tile-search and route kernels' launches in the fit (it fails if the
+sorted front end, the plan kernel or the route never ran, or a launch took
+a generic path), the
 extraction's wall (``cluster_sizes`` + ``cluster_mols``; every molecule
 must come out once), the card's peak allocated memory from the timed
 tree's construction on, and the process's peak resident memory on the
@@ -64,7 +66,7 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("scale_10m: torch.cuda.is_available() is False; no result")
     from bblean_tpu_torch import BatchTree
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
-    from bblean_tpu_torch.ops import tile_search
+    from bblean_tpu_torch.ops import route, tile_search
 
     n_m = int(argv[0]) if len(argv) > 0 else 10
     threshold = float(argv[1]) if len(argv) > 1 else 0.65
@@ -132,6 +134,7 @@ def main(argv: list[str] | None = None) -> None:
     torch.cuda.synchronize()
     tile_search.launches = tile_search.row_launches = 0
     tile_search.plan_launches = tile_search.generic_launches = 0
+    route.route_launches = route.generic_launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
@@ -141,6 +144,7 @@ def main(argv: list[str] | None = None) -> None:
     launches = {
         "sorted": tile_search.launches, "rows": tile_search.row_launches,
         "plan": tile_search.plan_launches, "generic": tile_search.generic_launches,
+        "route": route.route_launches, "route_generic": route.generic_launches,
     }
     groups, ls_rows = tree.num_groups, int(tree.state.num_ls)
     print(
@@ -148,8 +152,11 @@ def main(argv: list[str] | None = None) -> None:
         f"groups={groups:,}  ls_pool={ls_rows:,}  kernel launches {launches}",
         flush=True,
     )
-    if min(launches["sorted"], launches["plan"]) <= 0 or launches["generic"]:
-        raise AssertionError(f"the fit did not run on the tile-search kernels: {launches}")
+    if (
+        min(launches["sorted"], launches["plan"], launches["route"]) <= 0
+        or launches["generic"] or launches["route_generic"]
+    ):
+        raise AssertionError(f"the fit did not run on the kernels: {launches}")
     jax_count = JAX_COUNTS.get(threshold) if n_m == 10 else None
     if jax_count is not None:
         print(

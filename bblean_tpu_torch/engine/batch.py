@@ -68,7 +68,7 @@ from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
 )
-from bblean_tpu_torch.ops import tile_search
+from bblean_tpu_torch.ops import route, tile_search
 from bblean_tpu_torch.ops.popcount import _popcount_u8
 from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
 from bblean_tpu_torch.ops.tile_search import (
@@ -308,32 +308,8 @@ def _route_groups(
 ) -> torch.Tensor:
     r"""Argmax Tanimoto over live group centroids, in blocks of ``block``
     groups (first argmax overall: a later block wins only when strictly
-    better)."""
-    m = row_cent.shape[0]
-    dev = row_cent.device
-    g_cap = g_cent.shape[0]
-    block = min(block, g_cap)
-    n_blocks = (g_num + block - 1) // block
-    a_pad = _pad_int8(row_cent, 17)
-    best_sim = torch.full((m,), _NEG, dtype=torch.float32, device=dev)
-    best_idx = torch.zeros((m,), dtype=_I32, device=dev)
-    iota = torch.arange(block, dtype=_I32, device=dev)
-    for b in range(n_blocks):
-        start = b * block
-        s0 = min(start, g_cap - block)  # lax.dynamic_slice clamps its start
-        cb = g_cent[s0 : s0 + block]
-        pb = g_pops[s0 : s0 + block]
-        inter = _int8_gram(a_pad, cb, m).to(torch.float32)
-        union = (row_pop[:, None] + pb[None, :]).to(torch.float32) - inter
-        sims = inter / union.clamp_min(1.0)
-        cols = start + iota
-        sims = torch.where((cols < g_num)[None, :] & pending[:, None], sims, _NEG)
-        blk_best = sims.amax(dim=1)
-        blk_idx = start + torch.argmax(sims, dim=1).to(_I32)
-        take = blk_best > best_sim
-        best_sim = torch.where(take, blk_best, best_sim)
-        best_idx = torch.where(take, blk_idx, best_idx)
-    return torch.where(pending, best_idx, 0)
+    better): ``ops/route.py::route_groups``, the CUDA kernel on the card."""
+    return route.route_groups(row_cent, row_pop, g_cent, g_pops, g_num, pending, block)
 
 
 def _group_ids_by_key(

@@ -1,0 +1,317 @@
+r"""Group route: argmax (and max) Tanimoto of rows over the live group
+centroids, with a CUDA kernel on the card and the plain PyTorch version.
+
+Port of ``bblean_tpu/engine/batch.py::_route_groups`` (``:203-244``) and of
+its similarity twin ``bblean_tpu/parallel/sharded.py::_best_group_sim``
+(``:117-148``).  Neither is a Pallas kernel: on the TPU each is a
+``lax.fori_loop`` over blocks of ``block`` groups inside a jitted XLA
+program, an int8 ``dot_general`` on the MXU followed by the Tanimoto, the
+mask and a max (and argmax).  The batch engine routes every row of a step
+with :func:`route_groups` (fit, predict); the sharded merge gates each
+received group on :func:`best_group_sim`.
+
+Contract of both, equal to the JAX functions bit for bit.  Column
+``c = b * block + j`` of block ``b`` reads centroid row ``s0 + j`` with
+``s0 = min(b * block, G_cap - block)`` (``lax.dynamic_slice`` clamps its
+start; only the last block can be clamped, and only when ``block`` does
+not divide ``G_cap``), for ``block = min(block, G_cap)`` and
+``ceil(g_num / block)`` blocks.  ``inter`` is the int32 dot product of the
+0/1 planes, ``sim = f32(inter) / max(f32(pop_r + pop_g) - f32(inter), 1)``
+with IEEE division, and a column ``c >= g_num`` (or, for the route, a row
+that is not pending) scores -2.
+
+- :func:`route_groups`: the smallest ``c`` among the columns of largest
+  ``sim``, starting from ``(-2, 0)``, as int32; 0 where a row is not
+  pending.
+- :func:`best_group_sim`: the largest ``sim``, starting from -2, as f32.
+
+Dispatch: tensors on the CPU go to the plain versions
+(:func:`route_groups_plain`, :func:`best_group_sim_plain`: ``torch._int_mm``
+per block, then elementwise ops); tensors on a CUDA device go to the
+hand-written kernel of ``csrc/route.cu`` (int8 ``mma.sync`` with the
+Tanimoto and the (arg)max fused into its epilogue), and anything it does
+not take raises.  There is no fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
+
+__all__ = [
+    "route_groups",
+    "best_group_sim",
+    "route_groups_plain",
+    "best_group_sim_plain",
+    "route_launches",
+    "best_sim_launches",
+    "generic_launches",
+    "TILE_ROWS",
+    "TILE_COLS",
+]
+
+_NEG = -2.0
+_I32 = torch.int32
+_SOURCE = "route.cu"
+
+# Rows and group columns of one block of the kernel (its kTileM, kTileN)
+TILE_ROWS = 128
+TILE_COLS = 128
+
+# Kernel launches made by this module (the counts a run reads to show that
+# its path went through the CUDA kernel): the route (route_groups), the
+# twin (best_group_sim), and, of either, those that took the generic path
+# (ordinary loads: F % 16 != 0 or a table not 16-byte aligned)
+route_launches = 0
+best_sim_launches = 0
+generic_launches = 0
+
+_kernel_lib: ctypes.CDLL | None = None
+_resident: dict[int, int] = {}
+
+
+def _lib() -> ctypes.CDLL:
+    global _kernel_lib
+    if _kernel_lib is None:
+        from bblean_tpu_torch._build import load_kernel_library
+
+        lib = load_kernel_library(_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bb_route.argtypes = [p] * 8 + [i] * 7 + [i, i, p]
+        lib.bb_route.restype = i
+        lib.bb_route_resident_blocks.argtypes = []
+        lib.bb_route_resident_blocks.restype = i
+        lib.bb_route_tile.argtypes = [i]
+        lib.bb_route_tile.restype = i
+        tile = (lib.bb_route_tile(0), lib.bb_route_tile(1))
+        if tile != (TILE_ROWS, TILE_COLS):
+            raise RuntimeError(
+                f"{_SOURCE} has blocks of {tile[0]} rows x {tile[1]} groups, "
+                f"the wrapper expects {TILE_ROWS} x {TILE_COLS}"
+            )
+        _kernel_lib = lib
+    return _kernel_lib
+
+
+def route_groups_plain(
+    row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
+    row_pop: torch.Tensor,  # (M,) int32
+    g_cent: torch.Tensor,  # (G_cap, F) int8 (0/1 values)
+    g_pops: torch.Tensor,  # (G_cap,) int32
+    g_num: int,  # live groups (read on the host once per step)
+    pending: torch.Tensor,  # (M,) bool
+    block: int,
+) -> torch.Tensor:
+    r"""Argmax Tanimoto over live group centroids, in blocks of ``block``
+    groups (first argmax overall: a later block wins only when strictly
+    better)."""
+    m = row_cent.shape[0]
+    dev = row_cent.device
+    g_cap = g_cent.shape[0]
+    block = min(block, g_cap)
+    n_blocks = (g_num + block - 1) // block
+    a_pad = _pad_int8(row_cent, 17)
+    best_sim = torch.full((m,), _NEG, dtype=torch.float32, device=dev)
+    best_idx = torch.zeros((m,), dtype=_I32, device=dev)
+    iota = torch.arange(block, dtype=_I32, device=dev)
+    for b in range(n_blocks):
+        start = b * block
+        s0 = min(start, g_cap - block)  # lax.dynamic_slice clamps its start
+        cb = g_cent[s0 : s0 + block]
+        pb = g_pops[s0 : s0 + block]
+        inter = _int8_gram(a_pad, cb, m).to(torch.float32)
+        union = (row_pop[:, None] + pb[None, :]).to(torch.float32) - inter
+        sims = inter / union.clamp_min(1.0)
+        cols = start + iota
+        sims = torch.where((cols < g_num)[None, :] & pending[:, None], sims, _NEG)
+        blk_best = sims.amax(dim=1)
+        blk_idx = start + torch.argmax(sims, dim=1).to(_I32)
+        take = blk_best > best_sim
+        best_sim = torch.where(take, blk_best, best_sim)
+        best_idx = torch.where(take, blk_idx, best_idx)
+    return torch.where(pending, best_idx, 0)
+
+
+def best_group_sim_plain(
+    q_cent: torch.Tensor,  # (Q, F) int8 query centroids (0/1 values)
+    q_pops: torch.Tensor,  # (Q,) int32
+    g_cent: torch.Tensor,  # (G_cap, F) int8 (0/1 values)
+    g_pops: torch.Tensor,  # (G_cap,) int32
+    g_num: int,  # live groups (read on the host by the caller)
+    block: int,
+) -> torch.Tensor:
+    r"""Max Tanimoto of each query centroid over the live groups, in blocks
+    of ``block`` groups (the similarity twin of ``route_groups_plain``)."""
+    q = q_cent.shape[0]
+    dev = q_cent.device
+    g_cap = g_cent.shape[0]
+    block = min(block, g_cap)
+    n_blocks = (g_num + block - 1) // block
+    a_pad = _pad_int8(q_cent, 17)
+    best = torch.full((q,), _NEG, dtype=torch.float32, device=dev)
+    iota = torch.arange(block, dtype=_I32, device=dev)
+    for b in range(n_blocks):
+        start = b * block
+        s0 = min(start, g_cap - block)  # lax.dynamic_slice clamps its start
+        pb = g_pops[s0 : s0 + block]
+        inter = _int8_gram(a_pad, g_cent[s0 : s0 + block], q).to(torch.float32)
+        union = (q_pops[:, None] + pb[None, :]).to(torch.float32) - inter
+        sims = inter / union.clamp_min(1.0)
+        sims = torch.where((start + iota < g_num)[None, :], sims, _NEG)
+        best = torch.maximum(best, sims.amax(dim=1))
+    return best
+
+
+def _last_block(g_cap: int, g_num: int, block: int) -> tuple[int, int]:
+    r"""(first column of the last block, the shift of its centroid rows):
+    column ``c`` reads row ``c + shift`` where ``c >= start``, row ``c``
+    elsewhere.  Only the last block can be clamped: every earlier block
+    ends below ``g_num <= G_cap``."""
+    block = min(block, g_cap)
+    start = (max(g_num, 1) - 1) // block * block
+    return start, min(start, g_cap - block) - start
+
+
+def _chunks(m: int, g_num: int, resident: int) -> tuple[int, int]:
+    r"""(chunks, column tiles a chunk) for ``m`` rows over ``g_num`` live
+    groups: the live columns split into chunks on the grid's second axis,
+    as many as keep the row tiles times the chunks within the blocks the
+    card holds at once (at least one chunk, and no more chunks than column
+    tiles)."""
+    row_tiles = -(-m // TILE_ROWS)
+    col_tiles = -(-g_num // TILE_COLS)
+    want = max(1, min(col_tiles, resident // row_tiles))
+    per = -(-col_tiles // want)
+    return -(-col_tiles // per), per
+
+
+def _check_inputs(tensors: dict, g_num: int, block: int) -> None:
+    r"""Raise unless every tensor is on one CUDA device with the kernel's
+    dtype, rank and contiguity, the shapes agree and ``0 <= g_num <= G_cap``.
+    ``tensors`` maps a name to (tensor, dtype, ndim); the first is the
+    (M, F) row table."""
+    first, (t0, _dt, _nd) = next(iter(tensors.items()))
+    dev = t0.device
+    for name, (t, dtype, ndim) in tensors.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"route kernel needs every tensor on one CUDA device; {name} is "
+                f"on {t.device}, {first} on {dev}"
+            )
+        if t.dtype != dtype or t.dim() != ndim:
+            raise ValueError(
+                f"route kernel: {name} must be {ndim}-d {dtype}, got "
+                f"{t.dim()}-d {t.dtype}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"route kernel: {name} must be contiguous")
+    (m, f), (g_cap, gf) = t0.shape, tensors["g_cent"][0].shape
+    if f < 1 or g_cap < 1 or gf != f:
+        raise ValueError(
+            f"route kernel: rows (M, {f}) and centroids ({g_cap}, {gf}) must "
+            f"share a width of at least 1 over at least one group"
+        )
+    for name, (t, _dt, ndim) in tensors.items():
+        want = g_cap if name == "g_pops" else m
+        if ndim == 1 and t.shape[0] != want:
+            raise ValueError(f"route kernel: {name} must have {want} rows")
+    if not 0 <= g_num <= g_cap or block < 1:
+        raise ValueError(
+            f"route kernel: need 0 <= g_num <= G_cap and block >= 1; got "
+            f"g_num={g_num}, G_cap={g_cap}, block={block}"
+        )
+
+
+def _launch(rows, pops, g_cent, g_pops, g_num, pending, block) -> torch.Tensor:
+    r"""One launch of the kernel: the route when ``pending`` is given (int32
+    group per row), the twin when it is None (f32 best sim per row)."""
+    global route_launches, best_sim_launches, generic_launches
+    argmax = pending is not None
+    checked = {
+        "rows": (rows, torch.int8, 2),
+        "pops": (pops, torch.int32, 1),
+        "g_cent": (g_cent, torch.int8, 2),
+        "g_pops": (g_pops, torch.int32, 1),
+    }
+    if argmax:
+        checked["pending"] = (pending, torch.bool, 1)
+    _check_inputs(checked, g_num, block)
+    dev = rows.device
+    m, f = rows.shape
+    if m == 0 or g_num == 0:  # no live column: nothing to launch
+        if argmax:
+            return torch.zeros(m, dtype=_I32, device=dev)
+        return torch.full((m,), _NEG, dtype=torch.float32, device=dev)
+    out = torch.empty(m, dtype=_I32 if argmax else torch.float32, device=dev)
+    lib = _lib()
+    bulk = f % 16 == 0 and rows.data_ptr() % 16 == 0 and g_cent.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        if idx not in _resident:
+            _resident[idx] = lib.bb_route_resident_blocks()
+            if _resident[idx] < 1:
+                raise RuntimeError("route kernel: no block fits on this card")
+        n_chunks, per = _chunks(m, g_num, _resident[idx])
+        last_start, shift = _last_block(g_cent.shape[0], g_num, block)
+        part_sim = torch.empty((n_chunks, m), dtype=torch.float32, device=dev)
+        part_idx = torch.empty((n_chunks, m) if argmax else (0,), dtype=_I32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bb_route(
+            rows.data_ptr(), pops.data_ptr(), g_cent.data_ptr(), g_pops.data_ptr(),
+            pending.data_ptr() if argmax else None, part_sim.data_ptr(),
+            part_idx.data_ptr() if argmax else None, out.data_ptr(),
+            m, f, g_num, last_start, shift, n_chunks, per, int(argmax),
+            int(bulk), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"route kernel launch failed: CUDA error {err}")
+    if argmax:
+        route_launches += 1
+    else:
+        best_sim_launches += 1
+    generic_launches += not bulk
+    return out
+
+
+def route_groups(
+    row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
+    row_pop: torch.Tensor,  # (M,) int32
+    g_cent: torch.Tensor,  # (G_cap, F) int8 (0/1 values)
+    g_pops: torch.Tensor,  # (G_cap,) int32
+    g_num: int,  # live groups (read on the host once per step)
+    pending: torch.Tensor,  # (M,) bool
+    block: int,
+) -> torch.Tensor:
+    r"""Routed group per row (int32): the first argmax Tanimoto over the
+    live group centroids, 0 where the row is not pending.
+
+    Replaces ``bblean_tpu/engine/batch.py:203`` (``_route_groups``).  On
+    the card one launch of ``bb_route`` (``csrc/route.cu``); on the CPU
+    :func:`route_groups_plain`.
+    """
+    if row_cent.device.type == "cpu":
+        return route_groups_plain(row_cent, row_pop, g_cent, g_pops, g_num, pending, block)
+    return _launch(row_cent, row_pop, g_cent, g_pops, g_num, pending, block)
+
+
+def best_group_sim(
+    q_cent: torch.Tensor,  # (Q, F) int8 query centroids (0/1 values)
+    q_pops: torch.Tensor,  # (Q,) int32
+    g_cent: torch.Tensor,  # (G_cap, F) int8 (0/1 values)
+    g_pops: torch.Tensor,  # (G_cap,) int32
+    g_num: int,  # live groups (read on the host by the caller)
+    block: int,
+) -> torch.Tensor:
+    r"""Max Tanimoto (f32) of each query centroid over the live groups, -2
+    where there is none.
+
+    Replaces ``bblean_tpu/parallel/sharded.py:117`` (``_best_group_sim``).
+    On the card one launch of ``bb_route`` (``csrc/route.cu``) with the max
+    epilogue; on the CPU :func:`best_group_sim_plain`.
+    """
+    if q_cent.device.type == "cpu":
+        return best_group_sim_plain(q_cent, q_pops, g_cent, g_pops, g_num, block)
+    return _launch(q_cent, q_pops, g_cent, g_pops, g_num, None, block)

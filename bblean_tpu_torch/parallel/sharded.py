@@ -64,7 +64,6 @@ import torch
 from bblean_tpu_torch.engine import batch as _batch
 from bblean_tpu_torch.engine.batch import (
     _I32,
-    _NEG,
     BatchState,
     _batch_step_impl,
     _cluster_ls_of,
@@ -83,8 +82,7 @@ from bblean_tpu_torch.engine.batch import (
     _slice_prep_fp_rows_impl,
     _split_topk_impl,
 )
-from bblean_tpu_torch.ops import tile_search
-from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
+from bblean_tpu_torch.ops import route, tile_search
 from bblean_tpu_torch.parallel.mesh import Mesh, get_mesh
 
 __all__ = ["sharded_fit", "ShardedClusters", "ShardedForest"]
@@ -125,25 +123,9 @@ def _best_group_sim(
     block: int,
 ) -> torch.Tensor:
     r"""Max Tanimoto of each query centroid over the live groups, in blocks
-    of ``block`` groups (the similarity twin of ``_route_groups``)."""
-    q = q_cent.shape[0]
-    dev = q_cent.device
-    g_cap = g_cent.shape[0]
-    block = min(block, g_cap)
-    n_blocks = (g_num + block - 1) // block
-    a_pad = _pad_int8(q_cent, 17)
-    best = torch.full((q,), _NEG, dtype=torch.float32, device=dev)
-    iota = torch.arange(block, dtype=_I32, device=dev)
-    for b in range(n_blocks):
-        start = b * block
-        s0 = min(start, g_cap - block)  # lax.dynamic_slice clamps its start
-        pb = g_pops[s0 : s0 + block]
-        inter = _int8_gram(a_pad, g_cent[s0 : s0 + block], q).to(torch.float32)
-        union = (q_pops[:, None] + pb[None, :]).to(torch.float32) - inter
-        sims = inter / union.clamp_min(1.0)
-        sims = torch.where((start + iota < g_num)[None, :], sims, _NEG)
-        best = torch.maximum(best, sims.amax(dim=1))
-    return best
+    of ``block`` groups (the similarity twin of ``_route_groups``):
+    ``ops/route.py::best_group_sim``, the CUDA kernel on the card."""
+    return route.best_group_sim(q_cent, q_pops, g_cent, g_pops, g_num, block)
 
 
 def _insert_slots_impl(

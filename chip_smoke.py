@@ -6,7 +6,8 @@ as the phase ends:
 
 1. device: the card's name and power limit (then the line
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-   prints); build the tile-search kernels;
+   prints); build the tile-search and route kernels (one ``nvcc`` for
+   each source, both at once);
 2. the tile-search kernel's sorted front end against its plain PyTorch
    version on the card, at the batch engine's shapes and at tied cells,
    items longer than the plan's 64 rows, 512-cell tiles and 104- and
@@ -26,6 +27,17 @@ as the phase ends:
    pending on 2 groups);
 2c. the sort plan's item-table kernel against its plain version, at the
    fit's and predict's batches, timed on the fit's keys;
+2d. the route kernel (``ops/route.py`` over ``csrc/route.cu``), both
+   epilogues (the route's first argmax, the merge's best sim) bit-equal to
+   their plain versions: 8,192 x 2048-bit rows against 65,536 groups at
+   1; 1,000; 17,364; 43,008 and 65,536 live and at the 1M fit's average
+   route, tied centroids in other blocks and chunks, a block that does not
+   divide the table, 264-bit rows (the generic path, counted), and the
+   merge's shape (the receivers' group capacity of phase 8 b); each
+   2048-bit case at the engine's block of 1,024 with the kernel's time
+   (profiler), its time per call (events), the plain version's time,
+   ``torch._int_mm`` over the same live blocks (the product alone, the
+   library yardstick), the bound and the share;
 3. the port on the CPU (plain search) and on the card (kernels) give the
    same labels for 20,000 fingerprints after the fit, a shuffled
    recluster and a refine, and the same predicted slots and sims for
@@ -123,11 +135,16 @@ as the phase ends:
    chip_smoke.py --only examples`` runs phases 1 and 11 alone.
 
 Each main-path run (each fit, each predict, the refine, each command-line
-run) counts the kernels' launches from zero and must launch the kernels it
-runs; the plain search must never see CUDA tensors.  The line before the
-last is a JSON object with each kernel's launches, error, times, bound and
-share at the shape the fits give it (the "fit" cases of phases 2, 2b and
-2c); the last line is
+run, each merge) counts the kernels' launches from zero and must launch the
+kernels it runs (the route in every fit, predict, refine and command-line
+run, the route's twin in every merge of phase 8 b; none on a generic path);
+the plain search, route and twin must never see CUDA tensors.  Phase 4's
+fits and phase 8 b's fits and merges hold sampled launches of the route
+and twin bit-equal to the plain versions on their own inputs and print
+their average shapes.  The line before the last is a JSON object with each
+kernel's launches, error, times, bound, share and library yardstick at the
+shape the fits give it (the "fit" cases of phases 2, 2b, 2c and 2d; the
+merge case of 2d for the twin); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero without a result.
 """
@@ -165,6 +182,20 @@ ROUTES = {"one": (1, 0.8), "few": (3, 0.8), "spread": (4095, 0.8)}
 SORTED_FIT = (64, 7408 / 8192)
 ROWS_FIT = (2, 515 / 2048)
 PORT_COUNTS = {0.3: 397_552, 0.65: 983_222}
+# Phase 2d: the route's rows and bits, its table of 65,536 groups and the
+# live groups of the timed cases (17,364 and 43,008: about the 10M fits'
+# final groups); "fit" is the average live groups of a route in the 1M
+# fit at t = 0.3 (1,645.5 over its 123 routes; phase 4 prints it); the
+# merge's receivers in phase 8 b at t = 0.3 have a group capacity of
+# MERGE_Q (the twin's rows and table) and MERGE_FIT live groups a call on
+# average (754.6 over 7 calls; phase 8 b prints both)
+ROUTE_M = 8192
+ROUTE_G_CAP = 1 << 16
+ROUTE_BLOCK = 1024
+ROUTE_LIVE = (1, 1000, 17_364, 43_008, 65_536)
+ROUTE_FIT = 1_646
+MERGE_Q = 16_384
+MERGE_FIT = 755
 # Phase 7's sizes: centroids of the 1M tree that k-means clusters, its
 # clusters, and the rows and iterations of the t-SNE embedding
 KMEANS_ROWS = 100_000
@@ -233,21 +264,27 @@ def say(*parts) -> None:
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    from concurrent.futures import ThreadPoolExecutor
+
     from bblean_tpu_torch import _build
-    from bblean_tpu_torch.ops import tile_search
+    from bblean_tpu_torch.ops import route, tile_search
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    # One nvcc for each source, both started together
     t0 = time.perf_counter()
-    tile_search._lib()
+    with ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(m._lib) for m in (tile_search, route)]:
+            built.result()
     built = time.perf_counter() - t0
     say(
         f"phase 1 device: {name} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | kernel build {_build.build_seconds['tile_search.cu']:.2f} s "
-        f"(load {built:.2f} s)"
+        f"cuda {torch.version.cuda} | kernel builds: tile_search.cu "
+        f"{_build.build_seconds['tile_search.cu']:.2f} s, route.cu "
+        f"{_build.build_seconds['route.cu']:.2f} s (both, loaded: {built:.2f} s)"
     )
     say(smi)
     return name
@@ -317,13 +354,17 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
     r"""A kernel's own time on the card: mean duration of the launches of
     the kernel called ``name`` in a ``torch.profiler`` trace (CUPTI) of
     ``reps`` calls, without the host dispatch around it; returns the mean
-    and the number of launches it is over.  CUPTI now and then loses an
-    activity record of a kernel this short, so a trace that holds fewer
-    than ``reps`` records is taken again, up to three times; the last one
+    and the number of launches it is over.  ``name`` may be a tuple: a
+    call that launches one kernel of each name (the route's product and
+    its chunks' combination) takes the sum of their means, over the fewest
+    records any of them kept.  CUPTI now and then loses an activity record
+    of a kernel this short, so a trace that holds fewer than ``reps``
+    records of a name is taken again, up to three times; the last one
     counts if it holds at least half of them.  A record too many, or a
     trace without the kernel, is an error at once."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -331,16 +372,21 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if name in e.key]
-        count = sum(e.count for e in kern)
-        if count == reps:
+        events = prof.key_averages()
+        kern = {n: [e for e in events if n in e.key] for n in names}
+        counts = {n: sum(e.count for e in k) for n, k in kern.items()}
+        count = min(counts.values())
+        if all(c == reps for c in counts.values()):
             break
-        if count > reps or count == 0:
-            raise AssertionError(f"the profiler saw {count} launches of {name}, not {reps}")
-        say(f"  profiler kept {count} of {reps} records of {name} (attempt {attempt + 1})")
+        if max(counts.values()) > reps or count == 0:
+            raise AssertionError(f"the profiler saw {counts} launches, not {reps} of each")
+        say(f"  profiler kept {counts} of {reps} records (attempt {attempt + 1})")
     if 2 * count < reps:
-        raise AssertionError(f"the profiler saw {count} launches of {name}, not {reps}")
-    return sum(e.device_time_total for e in kern) / count / 1e3, count
+        raise AssertionError(f"the profiler saw {counts} launches, not {reps} of each")
+    ms = sum(
+        sum(e.device_time_total for e in k) / counts[n] / 1e3 for n, k in kern.items()
+    )
+    return ms, count
 
 
 def _bound(row_group, pending, tile_shape) -> dict:
@@ -442,6 +488,7 @@ def phase_kernel() -> dict:
     ]
     max_err = 0.0
     timing = {}
+    library_ms = {}
     for m, fc, f8, conc, kind in cases:
         row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending = _search_case(
             gen, m, g, fc, f8, SORTED_FIT if conc == "fit" else ROUTES[conc], kind
@@ -475,25 +522,27 @@ def phase_kernel() -> dict:
             line += _timing_text(timing[key])
         say(line)
         if m == 8192 and f8 == 256 and conc == "one" and not kind:
-            say(_int_mm_line(row_pk, t_pk))
-    return {"max_abs_err": max_err, "timing": timing}
+            library_ms[fc] = _int_mm_ms(row_pk, t_pk)
+    return {"max_abs_err": max_err, "timing": timing, "library_ms": library_ms[256]}
 
 
-def _int_mm_line(row_pk, t_pk) -> str:
+def _int_mm_ms(row_pk, t_pk) -> float:
     r"""torch._int_mm of the unpacked int8 rows (8192 x 2048) against one
     group's unpacked tile (2048 x Fc, Fc = 256 or 512): intersections only
     (no Tanimoto, no argmax, one tile for every row), so not the same
-    function."""
+    function; the sorted front end's library yardstick.  Prints and
+    returns its ms a call."""
     from bblean_tpu_torch.engine.batch import unpack_fingerprints_device
 
     f = row_pk.shape[1] * 8
     a = unpack_fingerprints_device(row_pk, f).to(torch.int8).contiguous()
     b = unpack_fingerprints_device(t_pk[0], f).to(torch.int8).contiguous().t()
     ms = _median_ms(lambda: torch._int_mm(a, b))
-    return (
+    say(
         f"phase 2 information: torch._int_mm {tuple(a.shape)} x {tuple(b.shape)} "
         f"int8 -> int32, intersections only: {ms:.4f} ms (events, median of 15)"
     )
+    return ms
 
 
 def phase_row_kernel() -> dict:
@@ -598,19 +647,168 @@ def phase_plan() -> dict:
     return {"max_abs_err": 0.0, "timing": timing}
 
 
+def _route_inputs(gen, m, f, g_cap, ties=()):
+    r"""0/1 rows and centroids at 20% density on the card: centroid 3 copied
+    to the columns ``ties`` and a third of the rows copies of it (with
+    ``ties``), row 5 and centroid 7 all zero, a tenth of the rows not
+    pending."""
+    dev = gen.device
+    rows = (torch.rand((m, f), generator=gen, device=dev) < 0.2).to(torch.int8)
+    cent = (torch.rand((g_cap, f), generator=gen, device=dev) < 0.2).to(torch.int8)
+    if ties:
+        cent[list(ties)] = cent[3].clone()
+        rows[1::3] = cent[3]
+    rows[5] = 0
+    cent[7] = 0
+    pending = torch.rand(m, generator=gen, device=dev) >= 0.1
+    return (
+        rows, rows.sum(1, dtype=torch.int32), cent, cent.sum(1, dtype=torch.int32), pending,
+    )
+
+
+def _route_bound(m: int, f: int, g_num: int) -> dict:
+    r"""The least time for one route (or twin) call: the rows, the live
+    centroids, both popcount vectors and the pending flags read once and
+    the (M,) result written once over 3.35 TB/s; or the product's
+    2 * M * G * F int8 operations over 1,979 TOP/s (H100 SXM data sheet)."""
+    n_bytes = m * f + g_num * f + 4 * m + 4 * g_num + m + 4 * m
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * g_num * f / INT8_OPS_PER_S
+    return {
+        "work": f"M={m} x {g_num} live groups x F={f}",
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def _int_mm_live(rows, cent, g_num: int, block: int):
+    r"""``torch._int_mm`` of the rows against the centroids of every live
+    block (the product alone: no Tanimoto, no argmax; one call), the
+    library yardstick of the route."""
+    cols = min(-(-g_num // block) * block, cent.shape[0])
+    b = cent[:cols].t()
+    return lambda: torch._int_mm(rows, b)
+
+
+def phase_route() -> dict:
+    r"""Phase 2d: the route kernel (``ops/route.py``, ``csrc/route.cu``),
+    both epilogues (route: first argmax; twin: max) bit-equal to their plain
+    versions: M = 8192, F = 2048 against 65,536 groups at 1; 1,000;
+    17,364; 43,008 and 65,536 live, and at the 1M fit's average route;
+    tied centroids in other blocks and chunks; a block that does not divide
+    the table (the clamped last block); 264-bit rows (the generic path,
+    counted); the merge's own shape (Q = the receivers' group capacity).
+    Each F = 2048 case at the engine's block is timed: kernel ms (the
+    product and its chunks' combination, profiler), ms a call with dispatch
+    (events), the plain version's ms, ``torch._int_mm`` over the same live
+    blocks (the library yardstick), the bound and the share."""
+    from bblean_tpu_torch.ops import route
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    base = _route_inputs(gen, ROUTE_M, N_FEATURES, ROUTE_G_CAP)
+    ties = [3 + k * 8192 for k in range(1, 6)] + [1500]
+    cases = [(f"live {g}", base, g, ROUTE_BLOCK) for g in ROUTE_LIVE]
+    cases += [
+        ("fit", base, ROUTE_FIT, ROUTE_BLOCK),
+        ("ties", _route_inputs(gen, ROUTE_M, N_FEATURES, ROUTE_G_CAP, ties), 43_008, ROUTE_BLOCK),
+        ("clamped block 1000", base, ROUTE_G_CAP, 1000),
+        ("F=264", _route_inputs(gen, ROUTE_M, 264, 4096), 3000, ROUTE_BLOCK),
+        ("merge", _route_inputs(gen, MERGE_Q, N_FEATURES, MERGE_Q), MERGE_FIT, ROUTE_BLOCK),
+    ]
+    out = {"route": {"timing": {}}, "twin": {"timing": {}}}
+    for what, (rows, pops, cent, cpops, pending), g_num, block in cases:
+        m, f = rows.shape
+        where = f"{what}: M={m} F={f} G_cap={cent.shape[0]} live {g_num} block {block}"
+        calls = {
+            "route": (
+                lambda: route.route_groups(rows, pops, cent, cpops, g_num, pending, block),
+                lambda: route.route_groups_plain(rows, pops, cent, cpops, g_num, pending, block),
+            ),
+            "twin": (
+                lambda: route.best_group_sim(rows, pops, cent, cpops, g_num, block),
+                lambda: route.best_group_sim_plain(rows, pops, cent, cpops, g_num, block),
+            ),
+        }
+        before = (route.route_launches, route.best_sim_launches, route.generic_launches)
+        got = {k: kernel() for k, (kernel, _plain) in calls.items()}
+        ref = {k: plain() for k, (_kernel, plain) in calls.items()}
+        torch.cuda.synchronize()
+        after = (route.route_launches, route.best_sim_launches, route.generic_launches)
+        want = (before[0] + 1, before[1] + 1, before[2] + 2 * (f % 16 != 0))
+        if after != want:
+            raise AssertionError(f"phase 2d {where}: launches {before} -> {after}, not {want}")
+        if not torch.equal(got["route"], ref["route"]):
+            raise AssertionError(f"phase 2d {where}: routed groups differ from the plain version's")
+        if not torch.equal(got["twin"].view(torch.int32), ref["twin"].view(torch.int32)):
+            raise AssertionError(f"phase 2d {where}: best sims differ from the plain version's")
+        if what == "ties":
+            tied = pending.clone()
+            tied[0::3] = False
+            tied[2::3] = False
+            if not (bool((got["route"][tied] == 3).all()) and bool((got["twin"][1::3] == 1.0).all())):
+                raise AssertionError("phase 2d ties: a tie did not keep the first column")
+        line = f"phase 2d route and twin == plain: {where}"
+        if f == N_FEATURES and block == ROUTE_BLOCK and what != "ties":
+            bound = _route_bound(m, f, g_num)
+            library = _int_mm_live(rows, cent, g_num, block)
+            for k, (kernel, plain) in calls.items():
+                t = _time_case(kernel, plain, bound, name=("route_kernel", "route_combine_kernel"))
+                t["library_ms"] = _median_ms(library)
+                out[k]["timing"][what] = t
+                line += (
+                    f"\n  {k}" + _timing_text(t) + f"; torch._int_mm over the live blocks "
+                    f"{t['library_ms']:.4f} ms (events, median of 15)"
+                )
+        say(line)
+    for k in out:
+        out[k]["max_abs_err"] = 0.0  # bit-equal, else the phase failed
+    out["twin"]["timing"]["fit"] = out["twin"]["timing"]["merge"]
+    return out
+
+
 def _reset_counts() -> None:
-    from bblean_tpu_torch.ops import tile_search as ts
+    from bblean_tpu_torch.ops import route, tile_search as ts
 
     ts.launches = 0
     ts.row_launches = 0
     ts.generic_launches = 0
     ts.plan_launches = 0
+    route.route_launches = 0
+    route.best_sim_launches = 0
+    route.generic_launches = 0
 
 
 def _counts() -> tuple[int, int, int]:
     from bblean_tpu_torch.ops import tile_search as ts
 
     return ts.launches, ts.row_launches, ts.plan_launches
+
+
+def _route_counts() -> tuple[int, int, int]:
+    r"""Launches of the route kernel: (route, twin, generic path)."""
+    from bblean_tpu_torch.ops import route
+
+    return route.route_launches, route.best_sim_launches, route.generic_launches
+
+
+# A phase's launches of every kernel of the kernels line
+LAUNCH_KEYS = ("sorted", "rows", "plan", "route", "twin")
+
+
+def _add_launches(launches: dict) -> tuple[int, int, int]:
+    r"""Add the counts since the last ``_reset_counts()`` to ``launches``;
+    returns the route kernel's (route, twin, generic path)."""
+    route_counts = _route_counts()
+    for k, c in zip(LAUNCH_KEYS, _counts() + route_counts[:2]):
+        launches[k] += c
+    return route_counts
+
+
+def _check_route_launches(n: int, generic: int, what: str) -> None:
+    r"""A main-path run must launch the route (or twin) kernel, never on
+    the generic path."""
+    if n <= 0 or generic:
+        raise AssertionError(f"{what}: {n} route kernel launches, {generic} on the generic path")
 
 
 def phase_cpu_vs_cuda() -> None:
@@ -705,29 +903,112 @@ def _check_fit(tree, fps: np.ndarray, threshold: float) -> None:
 
 
 class _PlainOnCuda:
-    r"""Counts calls of the plain search on CUDA tensors (it must see none)
-    while installed in place of ``tile_search.search_tiles_plain``, through
-    which both wrappers reach the plain version."""
+    r"""Counts calls of the plain versions on CUDA tensors (they must see
+    none) while installed in place of ``tile_search.search_tiles_plain``,
+    through which both tile-search wrappers reach the plain search, and of
+    ``route.route_groups_plain`` and ``route.best_group_sim_plain``, through
+    which the route's wrappers reach theirs.  ``self.plain`` and
+    ``self.route_plain`` are the uncounted originals."""
 
     def __init__(self) -> None:
-        from bblean_tpu_torch.ops import tile_search as ts
+        from bblean_tpu_torch.ops import route, tile_search as ts
 
         self.ts, self.plain, self.calls = ts, ts.search_tiles_plain, 0
+        self.route = route
+        self.route_plain = {
+            "route_groups_plain": route.route_groups_plain,
+            "best_group_sim_plain": route.best_group_sim_plain,
+        }
+        self.route_calls = dict.fromkeys(self.route_plain, 0)
 
     def __call__(self, row_pk, *args):
         self.calls += row_pk.device.type == "cuda"
         return self.plain(row_pk, *args)
 
+    def _counted(self, name: str):
+        fn = self.route_plain[name]
+
+        def call(rows, *args):
+            self.route_calls[name] += rows.device.type == "cuda"
+            return fn(rows, *args)
+
+        return call
+
     def __enter__(self):
         self.ts.search_tiles_plain = self
+        for name in self.route_plain:
+            setattr(self.route, name, self._counted(name))
         return self
 
     def __exit__(self, *exc) -> None:
         self.ts.search_tiles_plain = self.plain
+        for name, fn in self.route_plain.items():
+            setattr(self.route, name, fn)
 
     def check(self, what: str) -> None:
         if self.calls:
             raise AssertionError(f"the plain search ran on CUDA tensors during {what}")
+        ran = [name for name, n in self.route_calls.items() if n]
+        if ran:
+            raise AssertionError(f"{' and '.join(ran)} ran on CUDA tensors during {what}")
+
+
+class _RouteWork:
+    r"""While installed, records the shape of every call of the route's
+    wrappers, as (rows, table groups, live groups) per kind ("route",
+    "twin"), and holds the first three calls of each kind and every 25th
+    after bit-equal to the plain version on the same inputs (the uncounted
+    originals of ``plain``, a :class:`_PlainOnCuda`).  The wrapper's own
+    launch is the main path's; the plain version launches no kernel."""
+
+    def __init__(self, plain: _PlainOnCuda) -> None:
+        route = plain.route
+        self.route = route
+        self.fns = {"route": route.route_groups, "twin": route.best_group_sim}
+        self.plains = {
+            "route": plain.route_plain["route_groups_plain"],
+            "twin": plain.route_plain["best_group_sim_plain"],
+        }
+        self.seen = {"route": [], "twin": []}
+        self.checked = {"route": 0, "twin": 0}
+
+    def _wrap(self, kind: str):
+        fn, plain = self.fns[kind], self.plains[kind]
+
+        def call(rows, *args):
+            got = fn(rows, *args)
+            self.seen[kind].append((rows.shape[0], args[1].shape[0], args[3]))
+            n = len(self.seen[kind])
+            if n <= 3 or n % 25 == 0:
+                ref = plain(rows, *args)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                    raise AssertionError(f"a {kind} launch on the main path differs from the plain version")
+                self.checked[kind] += 1
+            return got
+
+        return call
+
+    def mean(self, kind: str) -> tuple[float, float, float]:
+        r"""Mean (rows, table groups, live groups) of the calls of ``kind``."""
+        got = np.asarray(self.seen[kind], dtype=np.float64).reshape(-1, 3)
+        return tuple(got.mean(0)) if len(got) else (0.0, 0.0, 0.0)
+
+    def text(self, kind: str) -> str:
+        m, g_cap, g_num = self.mean(kind)
+        return (
+            f"{len(self.seen[kind])} {kind} calls (average M {m:.0f}, table {g_cap:.0f}, "
+            f"live groups {g_num:.1f}; {self.checked[kind]} held == plain)"
+        )
+
+    def __enter__(self):
+        self.route.route_groups = self._wrap("route")
+        self.route.best_group_sim = self._wrap("twin")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.route.route_groups = self.fns["route"]
+        self.route.best_group_sim = self.fns["twin"]
 
 
 def phase_full_size() -> dict:
@@ -741,7 +1022,7 @@ def phase_full_size() -> dict:
     torch.cuda.synchronize()
     say(f"phase 4 input: {N_FPS} x {N_FEATURES}-bit fps staged on the card in {time.perf_counter() - t0:.1f} s")
 
-    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     kept = None
     fit_walls = {}
     with _PlainOnCuda() as plain:
@@ -750,18 +1031,17 @@ def phase_full_size() -> dict:
             syncs0 = engine.host_syncs
             _reset_counts()
             t0 = time.perf_counter()
-            tree = BatchTree(
-                N_FEATURES, threshold=thr, batch_size=8192, device="cuda",
-                **FIT_SETTINGS[thr],
-            )
-            tree.fit_packed(dev_fps, range(N_FPS))
-            ncl = tree.num_clusters
-            torch.cuda.synchronize()
+            with _RouteWork(plain) as work:
+                tree = BatchTree(
+                    N_FEATURES, threshold=thr, batch_size=8192, device="cuda",
+                    **FIT_SETTINGS[thr],
+                )
+                tree.fit_packed(dev_fps, range(N_FPS))
+                ncl = tree.num_clusters
+                torch.cuda.synchronize()
             wall = fit_walls[thr] = time.perf_counter() - t0
             n_sorted, n_rows, n_plan = _counts()
-            launches["sorted"] += n_sorted
-            launches["rows"] += n_rows
-            launches["plan"] += n_plan
+            n_route, n_twin, route_generic = _add_launches(launches)
             from bblean_tpu_torch.ops import tile_search as ts
 
             n_generic = ts.generic_launches
@@ -772,13 +1052,16 @@ def phase_full_size() -> dict:
                 f"{ncl} clusters (port's count {PORT_COUNTS[thr]}; JAX record "
                 f"{JAX_COUNTS[thr]}, rel diff {rel:+.5%}), {syncs} host syncs, "
                 f"kernel launches {n_sorted} sorted + {n_rows} per-row "
-                f"({n_generic} on the generic path) + {n_plan} plan, peak "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated"
+                f"({n_generic} on the generic path) + {n_plan} plan + {n_route} route "
+                f"+ {n_twin} twin ({route_generic} generic), peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; "
+                f"{work.text('route')}, final groups {tree.num_groups}"
             )
             if n_sorted <= 0 or n_plan <= 0:
                 raise AssertionError("the fit never launched the sorted search or the plan kernel")
             if n_generic:
                 raise AssertionError(f"the fit took the generic path {n_generic} times")
+            _check_route_launches(n_route, route_generic, "the fit")
             plain.check("the fit")
             if ncl != PORT_COUNTS[thr]:
                 raise AssertionError(f"cluster count {ncl} is not the port's {PORT_COUNTS[thr]}")
@@ -855,7 +1138,7 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> tuple[di
     from bblean_tpu_torch.engine import batch as engine
 
     queries = fps[:131_072]
-    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     pred = {}
     for batch, kernel in ((8192, "sorted"), (1000, "rows")):
         _reset_counts()
@@ -863,16 +1146,16 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> tuple[di
         pred[batch] = tree.predict_packed(queries, batch=batch)
         wall = time.perf_counter() - t0
         n_sorted, n_rows, n_plan = _counts()
-        launches["sorted"] += n_sorted
-        launches["rows"] += n_rows
-        launches["plan"] += n_plan
+        n_route, _n_twin, route_generic = _add_launches(launches)
         say(
             f"phase 5 predict {len(queries)} queries at batch {batch}: "
             f"{wall:.3f} s, {len(queries) / wall:.0f} queries/s, kernel "
-            f"launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan"
+            f"launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan + "
+            f"{n_route} route"
         )
         if (min(n_sorted, n_plan), n_rows)[kernel == "rows"] <= 0:
             raise AssertionError(f"predict at batch {batch} never launched the {kernel} kernel")
+        _check_route_launches(n_route, route_generic, f"predict at batch {batch}")
         plain.check("predict")
     slots, sims = pred[8192]
     if not (np.array_equal(slots, pred[1000][0]) and np.array_equal(sims, pred[1000][1])):
@@ -907,19 +1190,18 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> tuple[di
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_sorted, n_rows, n_plan = _counts()
-    launches["sorted"] += n_sorted
-    launches["rows"] += n_rows
-    launches["plan"] += n_plan
+    n_route, _n_twin, route_generic = _add_launches(launches)
     plain.check("the refine")
     say(
         f"phase 5 refine (n_largest=1): {wall:.2f} s, {n_cl} -> {ncl} clusters, "
         f"{engine.host_syncs - syncs0} host syncs, kernel launches {n_sorted} "
-        f"sorted + {n_rows} per-row + {n_plan} plan, pool_dead_rows "
+        f"sorted + {n_rows} per-row + {n_plan} plan + {n_route} route, pool_dead_rows "
         f"{tree.pool_dead_rows}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated"
     )
     if n_sorted <= 0 or n_plan <= 0:
         raise AssertionError("the refine never launched the sorted search or the plan kernel")
+    _check_route_launches(n_route, route_generic, "the refine")
     labels, sizes = _check_assigned_once(tree)
     ls = tree.linear_sums()
     members_of = _members_by_cluster(labels, len(sizes))
@@ -1027,7 +1309,7 @@ def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda", tmp: Path
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
     from bblean_tpu_torch.ops import tile_search as ts
 
-    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     one = tmp / "one" / "fps.npy"
     two = tmp / "two"
     one.parent.mkdir()
@@ -1060,14 +1342,13 @@ def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda", tmp: Path
         ])
         wall = time.perf_counter() - t0
         n_sorted, n_rows, n_plan = _counts()
-        launches["sorted"] += n_sorted
-        launches["rows"] += n_rows
-        launches["plan"] += n_plan
+        n_route, n_twin, route_generic = _add_launches(launches)
         if min(n_sorted, n_rows, n_plan) <= 0 or ts.generic_launches:
             raise AssertionError(
                 f"phase 6 {what}: kernel launches {n_sorted} sorted + {n_rows} "
                 f"per-row + {n_plan} plan, {ts.generic_launches} generic"
             )
+        _check_route_launches(n_route, route_generic, f"phase 6 {what}")
         plain.check(f"the command line ({what})")
         got = _check_run_dir(out_dir, fps, thr, what)
         t = got["timings"]
@@ -1077,8 +1358,9 @@ def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda", tmp: Path
             f"phase 6 {what}: {got['n_clusters']} clusters (resident fit of phase 4: "
             f"{PORT_COUNTS[thr]}); total {t['total']:.2f} s of {wall:.2f} s in "
             f"main(): {parts}; resident-input fit of phase 4 {fit_walls[thr]:.2f} s; "
-            f"kernel launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan "
-            f"(0 generic); peak {peak / 2**30:.2f} GiB allocated; device "
+            f"kernel launches {n_sorted} sorted + {n_rows} per-row + {n_plan} plan + "
+            f"{n_route} route + {n_twin} twin (0 generic); peak {peak / 2**30:.2f} GiB "
+            f"allocated; device "
             f"{got['config']['device']} {got['config']['accelerators']}"
         )
         if not extra and thr == 0.3:
@@ -1181,6 +1463,7 @@ def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     fit_counts = _counts()
+    fit_route = _route_counts()[:2]
     fit_peak = torch.cuda.max_memory_allocated()
     if check is not None:
         check.arm(True)
@@ -1191,18 +1474,26 @@ def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
     if check is not None:
         check.arm(False)
     merge_counts = tuple(b - a for a, b in zip(fit_counts, _counts()))
-    if ts.generic_launches:
-        raise AssertionError(f"the sharded run took the generic path {ts.generic_launches} times")
+    merge_route = tuple(b - a for a, b in zip(fit_route, _route_counts()[:2]))
+    if ts.generic_launches or _route_counts()[2]:
+        raise AssertionError(
+            f"the sharded run took the generic path {ts.generic_launches} times "
+            f"(tile search) and {_route_counts()[2]} times (route)"
+        )
     return forest, {
         "fit_s": t1 - t0, "merge_s": t2 - t1, "n_clusters": ncl,
         "fit_launches": fit_counts, "merge_launches": merge_counts,
+        "fit_route": fit_route, "merge_route": merge_route,
         "syncs": engine.host_syncs - syncs0, "fit_peak": fit_peak,
         "peak": torch.cuda.max_memory_allocated(),
     }
 
 
 def _launch_text(counts) -> str:
-    return f"{counts[0]} sorted + {counts[1]} per-row + {counts[2]} plan"
+    text = f"{counts[0]} sorted + {counts[1]} per-row + {counts[2]} plan"
+    return text + "".join(
+        f" + {c} {k}" for k, c in zip(LAUNCH_KEYS[3:], counts[3:])
+    )
 
 
 def _check_forest(forest, fps: np.ndarray, what: str) -> np.ndarray:
@@ -1246,10 +1537,10 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
     from bblean_tpu_torch.ops import tile_search as ts
     from bblean_tpu_torch.parallel import get_mesh, sharded_fit
 
-    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
 
     def add(counts) -> None:
-        for k, c in zip(("sorted", "rows", "plan"), counts):
+        for k, c in zip(LAUNCH_KEYS, counts):
             launches[k] += c
 
     dev_fps = torch.from_numpy(fps).to("cuda:0")
@@ -1259,19 +1550,20 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
         dev_fps, get_mesh(devices=["cuda:0"]), 0.3,
         initial_capacity=1 << 19, ls_capacity=1 << 18,
     )
-    add(r["fit_launches"])
-    add(r["merge_launches"])
+    add(r["fit_launches"] + r["fit_route"])
+    add(r["merge_launches"] + r["merge_route"])
     plain.check("the one-shard fit")
     wall = r["fit_s"] + r["merge_s"]
     say(
         f"phase 8 a: 1 shard, t=0.3: fit + merge {wall:.2f} s ({N_FPS / wall:.0f} fps/s; "
         f"merge {r['merge_s']:.3f} s), {r['n_clusters']} clusters (BatchTree: "
         f"{PORT_COUNTS[0.3]}), {r['syncs']} host syncs, kernel launches "
-        f"{_launch_text(r['fit_launches'])} (0 generic), {forest.growths} table growths, "
+        f"{_launch_text(r['fit_launches'] + r['fit_route'])} (0 generic), {forest.growths} table growths, "
         f"peak {r['peak'] / 2**30:.2f} GiB allocated"
     )
     if min(r["fit_launches"]) <= 0:
         raise AssertionError("the one-shard fit did not launch every kernel")
+    _check_route_launches(r["fit_route"][0], 0, "phase 8 a: the one-shard fit")
     _held_count("one", r["n_clusters"], "phase 8 a")
     count_a = r["n_clusters"]
     del forest
@@ -1284,18 +1576,19 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
         cap = (N_FPS // 8) * 2 + 2 * 8192
         first = None
         for run in (1, 2):
-            with _MergeSearchCheck(plain) as check:
+            with _MergeSearchCheck(plain) as check, _RouteWork(plain) as work:
                 forest, r = _sharded_run(dev_fps, mesh8, thr, check, initial_capacity=cap)
-            add(r["fit_launches"])
-            add(r["merge_launches"])
+            add(r["fit_launches"] + r["fit_route"])
+            add(r["merge_launches"] + r["merge_route"])
             plain.check("the eight-shard fit and merge")
             wall = r["fit_s"] + r["merge_s"]
             say(
                 f"phase 8 b: 8 shards on cuda:0, t={thr}, run {run}: fit {r['fit_s']:.2f} s, "
                 f"merge {r['merge_s']:.2f} s ({r['merge_s'] / wall:.1%} of {wall:.2f} s; "
                 f"{N_FPS / wall:.0f} fps/s), {r['n_clusters']} clusters, {r['syncs']} host "
-                f"syncs, kernel launches: fit {_launch_text(r['fit_launches'])}, merge "
-                f"{_launch_text(r['merge_launches'])} (0 generic), {forest.growths} table "
+                f"syncs, kernel launches: fit {_launch_text(r['fit_launches'] + r['fit_route'])}, "
+                f"merge {_launch_text(r['merge_launches'] + r['merge_route'])} (0 generic), "
+                f"{forest.growths} table "
                 f"growths, capacities {forest.capacity} slots / {forest.g_capacity} groups "
                 f"/ {forest.ls_capacity} pool rows, peak {r['fit_peak'] / 2**30:.2f} GiB "
                 f"in the fit, {r['peak'] / 2**30:.2f} GiB in all"
@@ -1311,18 +1604,23 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
                 )
             if min(r["fit_launches"]) <= 0:
                 raise AssertionError("the eight-shard fit did not launch every kernel")
+            _check_route_launches(r["fit_route"][0], 0, "phase 8 b: the eight-shard fit")
+            _check_route_launches(r["merge_route"][1], 0, "phase 8 b: the merge's twin")
+            if work.checked["twin"] <= 0:
+                raise AssertionError("phase 8 d: no twin launch of the merge was held to the plain version")
             rows_in = sum(
                 s["rows"] for st in forest.merge_stats for s in st["receivers"].values()
             )
-            if rows_in and min(r["merge_launches"][0], r["merge_launches"][2]) <= 0:
-                raise AssertionError("the merge inserted rows and launched no sorted search")
+            if rows_in and min(r["merge_launches"][0], r["merge_launches"][2], r["merge_route"][0]) <= 0:
+                raise AssertionError("the merge inserted rows and launched no sorted search or route")
             if rows_in and min(check.checked.values()) <= 0:
                 raise AssertionError(f"phase 8 d: checked {check.checked} launches in the merge")
             say(
                 f"phase 8 d: t={thr} run {run}: inside the merge {check.checked['sorted']} "
                 f"sorted and {check.checked['rows']} per-row launches == plain on the "
                 f"merge's inputs (pending rows, tiles, M of the first three: sorted "
-                f"{check.work['sorted'][:3]}, per-row {check.work['rows'][:3]})"
+                f"{check.work['sorted'][:3]}, per-row {check.work['rows'][:3]}); "
+                f"fit and merge: {work.text('route')}; merge: {work.text('twin')}"
             )
             _held_count(thr, r["n_clusters"], f"phase 8 b t={thr}")
             if run == 1:
@@ -1369,12 +1667,14 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
             "--engine", "sharded", "--no-monitor-mem", "-V",
         ])
         wall = time.perf_counter() - t0
-        add(_counts())
+        counts = _counts() + _route_counts()[:2]
+        add(counts)
         if min(_counts()) <= 0 or ts.generic_launches:
             raise AssertionError(
-                f"phase 8 e: kernel launches {_launch_text(_counts())}, "
+                f"phase 8 e: kernel launches {_launch_text(counts)}, "
                 f"{ts.generic_launches} generic"
             )
+        _check_route_launches(counts[3], _route_counts()[2], "phase 8 e")
         plain.check("the command line (--engine sharded)")
         got = _check_run_dir(out_dir, fps, 0.3, "e: --engine sharded, one file, t=0.3", 8)
         cfg, t = got["config"], got["timings"]
@@ -1383,7 +1683,7 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
             f"phase 8 e: {got['n_clusters']} clusters (one shard of a: {count_a}); "
             f"{cfg['n_devices']} device(s), {cfg['device_table_bytes_per_device'] / 2**30:.2f} "
             f"GiB of tables per shard; total {t['total']:.2f} s of {wall:.2f} s in main(): "
-            f"{parts}; kernel launches {_launch_text(_counts())} (0 generic)"
+            f"{parts}; kernel launches {_launch_text(counts)} (0 generic)"
         )
         if cfg["n_devices"] != torch.cuda.device_count():
             raise AssertionError("phase 8 e: the mesh is not every visible card")
@@ -1506,7 +1806,7 @@ def phase_bitbirch(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
     del again
 
     # (b) BatchTree on the card against the serial counts
-    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     outside_band = []
     dev_rows = torch.from_numpy(rows).to("cuda")
     for thr in (0.3, 0.65):
@@ -1522,14 +1822,13 @@ def phase_bitbirch(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_sorted, n_rows, n_plan = _counts()
-        launches["sorted"] += n_sorted
-        launches["rows"] += n_rows
-        launches["plan"] += n_plan
+        n_route, _n_twin, route_generic = _add_launches(launches)
         if n_sorted <= 0 or n_plan <= 0 or ts.generic_launches:
             raise AssertionError(
                 f"phase 9 b t={thr}: launches {n_sorted} sorted + {n_plan} plan, "
                 f"{ts.generic_launches} generic"
             )
+        _check_route_launches(n_route, route_generic, f"phase 9 b t={thr}")
         plain.check("phase 9 b")
         labels, sizes = _check_labels(tree.assignments(), tree.cluster_sizes(), BITBIRCH_ROWS)
         _check_cohesion(labels, sizes, rows, thr)
@@ -1654,7 +1953,7 @@ def phase_bitbirch(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
             f"processes): {got['n_clusters']} clusters, host engine {cfg['host_engine']}; "
             f"total {got['timings']['total']:.2f} s of {wall:.2f} s in main(): {parts} ({cpu})"
         )
-        if sum(_counts()) != 0:
+        if sum(_counts()) + sum(_route_counts()) != 0:
             raise AssertionError("phase 9 d: a host command launched a device kernel")
     say(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     if outside_band:
@@ -1912,11 +2211,12 @@ _EXAMPLE_WRAPPER = (
     "import time\n"
     "t0 = time.perf_counter()\n"
     "import runpy, sys\n"
-    "from bblean_tpu_torch.ops import tile_search as ts\n"
+    "from bblean_tpu_torch.ops import route, tile_search as ts\n"
     "name = sys.argv[1]\n"
     "sys.argv = [name, *sys.argv[2:]]\n"
     "runpy.run_module('bblean_tpu_torch.examples.' + name, run_name='__main__')\n"
     "print('launches', ts.launches, ts.row_launches, ts.plan_launches,\n"
+    "      route.route_launches, route.best_sim_launches,\n"
     "      time.perf_counter() - t0)\n"
 )
 
@@ -1960,7 +2260,7 @@ def phase_examples() -> dict:
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
 
     t_phase = time.perf_counter()
-    launches = {"sorted": 0, "rows": 0, "plan": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     with tempfile.TemporaryDirectory(prefix="bb-smoke-examples-") as tmp:
         tmp = Path(tmp)
         # The five runs at once: the host engines use one core each, and
@@ -1988,7 +2288,7 @@ def phase_examples() -> dict:
 
             name = "multi_device --shards 8 on cuda:0"
             lines, counts, wall = _finish_example(name, started["md8"])
-            if counts[0] <= 0 or counts[2] <= 0:
+            if min(counts[0], counts[2], counts[3], counts[4]) <= 0:
                 raise AssertionError(f"phase 11 {name}: launches {counts}")
             want = f"devices: 8 x {torch.cuda.get_device_name(0)}"
             if lines[0] != want:
@@ -2002,7 +2302,7 @@ def phase_examples() -> dict:
 
             name = "multi_device (default mesh)"
             lines, counts, wall = _finish_example(name, started["md"])
-            if counts[0] <= 0 or counts[2] <= 0:
+            if min(counts[0], counts[2], counts[3]) <= 0:
                 raise AssertionError(f"phase 11 {name}: launches {counts}")
             n_cards = torch.cuda.device_count()
             got = int(lines[1].split()[0])
@@ -2019,12 +2319,12 @@ def phase_examples() -> dict:
             tree.fit_packed(fps, range(len(fps)))
             ncl = tree.num_clusters
             tree_wall = time.perf_counter() - t0
-            for k, c in zip(("sorted", "rows", "plan"), _counts()):
-                launches[k] += c
+            n_route, _n_twin, route_generic = _add_launches(launches)
             say(
                 f"phase 11 {name}: {wall:.2f} s, {lines[0]!r}, {got} clusters; BatchTree on "
                 f"the same rows and settings: {ncl} clusters in {tree_wall:.2f} s (kernel "
-                f"launches {_launch_text(_counts())}); the example's launches {_launch_text(counts)}"
+                f"launches {_launch_text(_counts() + (n_route,))}); the example's launches "
+                f"{_launch_text(counts)}"
             )
             if lines[0] != f"devices: {n_cards} x {torch.cuda.get_device_name(0)}":
                 raise AssertionError(f"phase 11 {name}: the mesh is not every visible card")
@@ -2032,6 +2332,7 @@ def phase_examples() -> dict:
                 raise AssertionError(f"phase 11 {name}: one shard gave {got} clusters, BatchTree {ncl}")
             if min(_counts()) <= 0:
                 raise AssertionError("phase 11: BatchTree did not launch every kernel")
+            _check_route_launches(n_route, route_generic, "phase 11: BatchTree")
         finally:
             for proc in started.values():  # a failed check stops the runs still going
                 proc.kill()
@@ -2047,14 +2348,17 @@ def _only_examples() -> None:
         plain.check("phase 11")
 
 
-def _kernel_record(name, replaces, launches, phase) -> dict:
+def _kernel_record(name, source, replaces, launches, phase, library_ms=None) -> dict:
     r"""One kernel's entry of the JSON line: times, bound and share at the
-    "fit" case, the shape of the fit's average launch."""
+    "fit" case, the shape of the fit's average launch.  ``library_ms``: the
+    PyTorch call measured beside the kernel (``torch._int_mm`` on the
+    product alone, which the port never calls), or None where there is
+    none."""
     t = phase["timing"]["fit"]
     return {
         "name": name,
         "route": "cuda",
-        "source": "bblean_tpu_torch/csrc/tile_search.cu",
+        "source": f"bblean_tpu_torch/csrc/{source}",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": phase["max_abs_err"],
@@ -2063,7 +2367,7 @@ def _kernel_record(name, replaces, launches, phase) -> dict:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "share": t["share"],
-        "library_ms": None,  # no PyTorch call computes either function
+        "library_ms": library_ms,
     }
 
 
@@ -2128,6 +2432,7 @@ def main() -> None:
     kern = phase_kernel()
     rows = phase_row_kernel()
     plan = phase_plan()
+    routes = phase_route()
     phase_cpu_vs_cuda()
     full = phase_full_size()
     with _PlainOnCuda() as plain:
@@ -2137,16 +2442,26 @@ def main() -> None:
         full["launches"][k] += c
     say(json.dumps({"kernels": [
         _kernel_record(
-            "tile_search_sorted", "bblean_tpu/ops/pallas_search2.py:61",
-            full["launches"]["sorted"], kern,
+            "tile_search_sorted", "tile_search.cu", "bblean_tpu/ops/pallas_search2.py:61",
+            full["launches"]["sorted"], kern, kern["library_ms"],
         ),
         _kernel_record(
-            "tile_search_rows", "bblean_tpu/ops/pallas_search.py:42",
+            "tile_search_rows", "tile_search.cu", "bblean_tpu/ops/pallas_search.py:42",
             full["launches"]["rows"], rows,
         ),
         _kernel_record(
-            "sorted_search_plan_items", "bblean_tpu/ops/pallas_search2.py:245",
-            full["launches"]["plan"], plan,
+            "sorted_search_plan_items", "tile_search.cu",
+            "bblean_tpu/ops/pallas_search2.py:245", full["launches"]["plan"], plan,
+        ),
+        _kernel_record(
+            "route_argmax", "route.cu", "bblean_tpu/engine/batch.py:203",
+            full["launches"]["route"], routes["route"],
+            routes["route"]["timing"]["fit"]["library_ms"],
+        ),
+        _kernel_record(
+            "best_group_sim", "route.cu", "bblean_tpu/parallel/sharded.py:117",
+            full["launches"]["twin"], routes["twin"],
+            routes["twin"]["timing"]["fit"]["library_ms"],
         ),
     ]}))
     say(json.dumps({"ok": True, "device": {

@@ -64,6 +64,33 @@ JAX_MODULES = [bblean_tpu.__name__] + [
     m.name for m in pkgutil.walk_packages(bblean_tpu.__path__, "bblean_tpu.")
 ]
 
+# Modules of the port with no counterpart in the JAX package, each with its
+# reason; a module missing here, or an entry naming no such module, fails
+PORT_ONLY = {
+    "_build": "builds csrc/ with nvcc and the host compiler at first use",
+    "_device": "the port's device rule (CUDA unless the caller asks for the CPU)",
+    "_graft_entry": "twin of the repository root's __graft_entry__.py",
+    "_pca": "scikit-learn's PCA copied for the plots (no scikit-learn on the card's machine)",
+    "benchmarks": "twin of the repository root's benchmarks/ folder",
+    "benchmarks.route_cost": "twin of benchmarks/route_cost.py",
+    "benchmarks.scale_10m": "twin of benchmarks/scale_10m.py",
+    "engine.state_io": "BatchState to and from numpy (JAX arrays convert themselves)",
+    "examples": "twins of the repository root's examples/",
+    "examples.best_practices": "twin of examples/best_practices.py",
+    "examples.dataset_splitting": "twin of examples/dataset_splitting.py",
+    "examples.multi_device": "twin of examples/multi_device.py",
+    "examples.quickstart": "twin of examples/quickstart.py",
+    "ops.tile_search": (
+        "wrappers of csrc/tile_search.cu, the counterpart of ops/pallas_search.py "
+        "and ops/pallas_search2.py"
+    ),
+    "ops.route": (
+        "wrappers of csrc/route.cu and the plain versions: the route of "
+        "engine/batch.py::_route_groups and the twin of "
+        "parallel/sharded.py::_best_group_sim, XLA programs inside those modules"
+    ),
+}
+
 
 def _port_name(name: str) -> str:
     return "bblean_tpu_torch" + name[len("bblean_tpu"):]
@@ -187,3 +214,14 @@ def test_bb_command_has_its_counterpart(name: str) -> None:
     assert name in ports, f"bb-torch has no command {name}"
     cmd = bb_main if name == "" else bb_main.commands[name]
     assert _command_gaps(name, cmd, ports[name]) == set()
+
+
+def test_port_only_modules_are_listed() -> None:
+    r"""Every module of the port without a JAX counterpart has its reason
+    in ``PORT_ONLY``, and every entry there is such a module."""
+    jax = {name[len("bblean_tpu."):] for name in JAX_MODULES[1:]}
+    port = {
+        m.name[len("bblean_tpu_torch."):]
+        for m in pkgutil.walk_packages(bblean_tpu_torch.__path__, "bblean_tpu_torch.")
+    }
+    assert port - jax == set(PORT_ONLY)

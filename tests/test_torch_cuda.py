@@ -1,6 +1,7 @@
 r"""The port on a CUDA card: the tile-search kernels (sorted and per-row
-launch modes) and the sort plan's item-table kernel against their plain
-versions, CPU and CUDA fits giving the
+launch modes), the sort plan's item-table kernel and the route kernel
+(both epilogues: the route's first argmax and the merge's best sim)
+against their plain versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
@@ -430,3 +431,124 @@ def test_native_library_builds_and_equals_the_python_engine(cuda, monkeypatch) -
     python = BitBirch(threshold=0.3).fit(fps)
     assert python.engine_name == "python"
     assert native.get_cluster_mol_ids() == python.get_cluster_mol_ids()
+
+
+# ---- the route kernel (csrc/route.cu) ----
+
+
+def _route_case(rng, m, f, g_cap, ties=()):
+    r"""0/1 rows and centroids at 20% density on the card; centroid 3 copied
+    to the columns in ``ties``, a third of the rows copies of it, row 5 and
+    centroid 7 all zero, every third row not pending."""
+    rows = (rng.random((m, f)) < 0.2).astype(np.int8)
+    cent = (rng.random((g_cap, f)) < 0.2).astype(np.int8)
+    cent[list(ties)] = cent[3]
+    cent[7] = 0
+    rows[1::3] = cent[3]
+    rows[min(5, m - 1)] = 0
+    pending = np.ones(m, bool)
+    pending[::3] = False
+    pending[0] = True
+    arrays = (rows, rows.sum(1).astype(np.int32), cent, cent.sum(1).astype(np.int32), pending)
+    return [torch.from_numpy(a).to("cuda") for a in arrays]
+
+
+def _route_both(args, g_num, block):
+    r"""Both kernels and both plain versions on the same inputs; each
+    wrapper must count one launch (none when no group is live)."""
+    from bblean_tpu_torch.ops import route
+
+    rows, pops, cent, cpops, pending = args
+    before = (route.route_launches, route.best_sim_launches)
+    got = (
+        route.route_groups(rows, pops, cent, cpops, g_num, pending, block),
+        route.best_group_sim(rows, pops, cent, cpops, g_num, block),
+    )
+    launched = int(g_num > 0)
+    assert (route.route_launches, route.best_sim_launches) == (before[0] + launched, before[1] + launched)
+    ref = (
+        route.route_groups_plain(rows, pops, cent, cpops, g_num, pending, block),
+        route.best_group_sim_plain(rows, pops, cent, cpops, g_num, block),
+    )
+    torch.cuda.synchronize()
+    return got, ref
+
+
+@pytest.mark.parametrize(
+    "m,f,g_cap,g_num,block",
+    [
+        (37, 2048, 64, 45, 16),  # several blocks, the last one partial
+        (37, 2048, 64, 60, 24),  # the clamped last block
+        (37, 2048, 64, 64, 24),  # clamped, every group live
+        (37, 264, 64, 50, 128),  # block wider than the table (generic path)
+        (37, 100, 64, 0, 16),  # no live group: no launch
+        (37, 100, 64, 1, 16),  # one live group (generic path)
+        (300, 2048, 1024, 1000, 1000),  # clamped by 976 rows
+        (8192, 2048, 4096, 3000, 1024),  # the engine's M and F
+        (1, 2048, 256, 200, 64),
+    ],
+)
+def test_route_kernel_matches_plain(cuda, m, f, g_cap, g_num, block) -> None:
+    from bblean_tpu_torch.ops import route
+
+    rng = np.random.default_rng(m + f + g_num + block)
+    args = _route_case(rng, m, f, g_cap, ties=[t for t in (20, 41, 59) if t < g_cap])
+    generic = route.generic_launches
+    (idx, sim), (ref_idx, ref_sim) = _route_both(args, g_num, block)
+    assert route.generic_launches == generic + 2 * (f % 16 != 0 and g_num > 0)
+    assert idx.dtype == torch.int32 and sim.dtype == torch.float32
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(sim.view(torch.int32), ref_sim.view(torch.int32))
+
+
+def test_route_kernel_keeps_the_first_of_ties_across_chunks(cuda) -> None:
+    r"""At M = 8192 the live columns split into chunks on the grid: copies
+    of centroid 3 in other blocks and chunks tie at 1.0, and column 3 must
+    win; the main path's width takes no generic launch."""
+    from bblean_tpu_torch.ops import route
+
+    m, g_num = 8192, 4096
+    n_chunks, per = route._chunks(m, g_num, route._lib().bb_route_resident_blocks())
+    assert n_chunks > 1
+    ties = [3 + k * per * route.TILE_COLS + 5 for k in range(1, n_chunks)]
+    args = _route_case(np.random.default_rng(9), m, 2048, 8192, ties=[20, 1500, *ties])
+    generic = route.generic_launches
+    (idx, sim), (ref_idx, ref_sim) = _route_both(args, g_num, 1024)
+    assert route.generic_launches == generic
+    assert torch.equal(idx, ref_idx) and torch.equal(sim, ref_sim)
+    copies = args[4].clone()
+    copies[0::3] = False
+    copies[2::3] = False
+    assert bool((idx[copies] == 3).all()) and bool((sim[1::3] == 1.0).all())
+
+
+def test_route_kernel_unaligned_rows_take_the_generic_path(cuda) -> None:
+    from bblean_tpu_torch.ops import route
+
+    args = _route_case(np.random.default_rng(4), 500, 2048, 512)
+    buf = torch.empty(500 * 2048 + 8, dtype=torch.int8, device=cuda)
+    args[0] = buf[8:].view(500, 2048).copy_(args[0])
+    generic = route.generic_launches
+    (idx, sim), (ref_idx, ref_sim) = _route_both(args, 400, 128)
+    assert route.generic_launches == generic + 2
+    assert torch.equal(idx, ref_idx) and torch.equal(sim, ref_sim)
+
+
+def test_route_wrapper_rejects_bad_inputs(cuda) -> None:
+    from bblean_tpu_torch.ops import route
+
+    rows, pops, cent, cpops, pending = _route_case(np.random.default_rng(0), 64, 256, 128)
+    with pytest.raises(ValueError, match="must be"):
+        route.route_groups(rows.int(), pops, cent, cpops, 100, pending, 64)
+    with pytest.raises(ValueError, match="must be"):
+        route.best_group_sim(rows, pops.long(), cent, cpops, 100, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        route.route_groups(rows, pops, cent.t().contiguous().t(), cpops, 100, pending, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        route.route_groups(rows, pops, cent, cpops.cpu(), 100, pending, 64)
+    with pytest.raises(ValueError, match="g_num"):
+        route.best_group_sim(rows, pops, cent, cpops, 129, 64)
+    with pytest.raises(ValueError, match="share a width"):
+        route.best_group_sim(rows[:, :128].contiguous(), pops, cent, cpops, 100, 64)
+    with pytest.raises(ValueError, match="pending must have"):
+        route.route_groups(rows, pops, cent, cpops, 100, pending[:-1], 64)
