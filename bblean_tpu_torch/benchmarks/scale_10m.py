@@ -23,8 +23,8 @@ loaded, the caching allocator warmed), the timed tree runs
 It prints the fit's wall and fps/s, the cluster count (beside the JAX
 record's, as information), the groups, the linear-sum pool's rows, the
 tile-search and route kernels' launches in the fit (it fails if the
-sorted front end, the plan kernel or the route never ran, or a launch took
-a generic path), the
+sorted front end, the plan kernel or the route never ran, a launch took
+a generic path, or a route launch missed the TMA path), the
 extraction's wall (``cluster_sizes`` + ``cluster_mols``; every molecule
 must come out once), the card's peak allocated memory from the timed
 tree's construction on, and the process's peak resident memory on the
@@ -134,7 +134,7 @@ def main(argv: list[str] | None = None) -> None:
     torch.cuda.synchronize()
     tile_search.launches = tile_search.row_launches = 0
     tile_search.plan_launches = tile_search.generic_launches = 0
-    route.route_launches = route.generic_launches = 0
+    route.route_launches = route.generic_launches = route.wgmma_launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
@@ -145,6 +145,7 @@ def main(argv: list[str] | None = None) -> None:
         "sorted": tile_search.launches, "rows": tile_search.row_launches,
         "plan": tile_search.plan_launches, "generic": tile_search.generic_launches,
         "route": route.route_launches, "route_generic": route.generic_launches,
+        "route_wgmma": route.wgmma_launches,
     }
     groups, ls_rows = tree.num_groups, int(tree.state.num_ls)
     print(
@@ -155,6 +156,7 @@ def main(argv: list[str] | None = None) -> None:
     if (
         min(launches["sorted"], launches["plan"], launches["route"]) <= 0
         or launches["generic"] or launches["route_generic"]
+        or launches["route_wgmma"] != launches["route"]
     ):
         raise AssertionError(f"the fit did not run on the kernels: {launches}")
     jax_count = JAX_COUNTS.get(threshold) if n_m == 10 else None

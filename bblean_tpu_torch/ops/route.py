@@ -28,14 +28,29 @@ that is not pending) scores -2.
 Dispatch: tensors on the CPU go to the plain versions
 (:func:`route_groups_plain`, :func:`best_group_sim_plain`: ``torch._int_mm``
 per block, then elementwise ops); tensors on a CUDA device go to the
-hand-written kernel of ``csrc/route.cu`` (int8 ``mma.sync`` with the
-Tanimoto and the (arg)max fused into its epilogue), and anything it does
-not take raises.  There is no fallback from the kernel to the plain version.
+hand-written kernels of ``csrc/route.cu``, and anything they do not take
+raises.  There is no fallback from a kernel to the plain version.
+
+- The TMA path (F % 16 == 0, F <= 16,384, 16-byte-aligned tables; every
+  call of the engine and the merge): a persistent, warp-specialised kernel,
+  one block an SM, a producer warp keeping TMA loads in flight and two
+  consumer warpgroups on ``wgmma`` int8 (128 x 256 tiles), with the
+  Tanimoto and a division-free running (arg)max in registers.  Its work
+  units are (row tile, column range); :func:`_plan` chooses the ranges.
+  Counted in ``wgmma_launches``.
+- The generic path (anything else): an ``mma.sync`` kernel with byte
+  loads, one block per (row tile, range).  Counted in ``generic_launches``.
+
+Either is followed by a small kernel that combines the ranges' partials
+in column order.  ``route_launches`` and ``best_sim_launches`` count the
+calls of each wrapper that launched, on either path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +64,7 @@ __all__ = [
     "route_launches",
     "best_sim_launches",
     "generic_launches",
+    "wgmma_launches",
     "TILE_ROWS",
     "TILE_COLS",
 ]
@@ -57,20 +73,31 @@ _NEG = -2.0
 _I32 = torch.int32
 _SOURCE = "route.cu"
 
-# Rows and group columns of one block of the kernel (its kTileM, kTileN)
+# Rows and group columns of one tile of the TMA path (its kBM, kBN); the
+# column ranges are whole multiples of TILE_COLS
 TILE_ROWS = 128
-TILE_COLS = 128
+TILE_COLS = 256
 
 # Kernel launches made by this module (the counts a run reads to show that
-# its path went through the CUDA kernel): the route (route_groups), the
-# twin (best_group_sim), and, of either, those that took the generic path
-# (ordinary loads: F % 16 != 0 or a table not 16-byte aligned)
+# its path went through the CUDA kernels): the route (route_groups), the
+# twin (best_group_sim), and, of either, those that took the TMA path
+# (wgmma) and those that took the generic path (ordinary loads: F % 16 != 0,
+# F > 16,384 or a table not 16-byte aligned)
 route_launches = 0
 best_sim_launches = 0
+wgmma_launches = 0
 generic_launches = 0
 
+# A unit's cost beyond its column tiles (its rows' popcounts, the quad
+# reduction and the partial's writes), in column tiles, for _plan
+_UNIT_COST = 0.1
+# Widest rows the TMA path takes (route.cu's kMaxF)
+_TMA_MAX_F = 16384
+# The offset of a failed tensor-map encoding in bb_route's return value
+_ENCODE_ERROR = 100000
+
 _kernel_lib: ctypes.CDLL | None = None
-_resident: dict[int, int] = {}
+_sm_count: dict[int, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -80,16 +107,14 @@ def _lib() -> ctypes.CDLL:
 
         lib = load_kernel_library(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_route.argtypes = [p] * 8 + [i] * 7 + [i, i, p]
+        lib.bb_route.argtypes = [p] * 8 + [i] * 12 + [p]
         lib.bb_route.restype = i
-        lib.bb_route_resident_blocks.argtypes = []
-        lib.bb_route_resident_blocks.restype = i
         lib.bb_route_tile.argtypes = [i]
         lib.bb_route_tile.restype = i
         tile = (lib.bb_route_tile(0), lib.bb_route_tile(1))
         if tile != (TILE_ROWS, TILE_COLS):
             raise RuntimeError(
-                f"{_SOURCE} has blocks of {tile[0]} rows x {tile[1]} groups, "
+                f"{_SOURCE} has tiles of {tile[0]} rows x {tile[1]} groups, "
                 f"the wrapper expects {TILE_ROWS} x {TILE_COLS}"
             )
         _kernel_lib = lib
@@ -175,17 +200,41 @@ def _last_block(g_cap: int, g_num: int, block: int) -> tuple[int, int]:
     return start, min(start, g_cap - block) - start
 
 
-def _chunks(m: int, g_num: int, resident: int) -> tuple[int, int]:
-    r"""(chunks, column tiles a chunk) for ``m`` rows over ``g_num`` live
-    groups: the live columns split into chunks on the grid's second axis,
-    as many as keep the row tiles times the chunks within the blocks the
-    card holds at once (at least one chunk, and no more chunks than column
-    tiles)."""
+class _Plan(NamedTuple):
+    r"""The column ranges and work units of one call (route.cu's Ranges)."""
+
+    span: int  # columns a range: a multiple of TILE_COLS
+    s1: int  # ranges in [0, seg1_end)
+    seg1_end: int  # first column of the shifted last block, else g_num
+    n_ranges: int
+    units: int  # row tiles x ranges
+    grid: int  # persistent blocks of the TMA path: min(units, SMs)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m: int, g_num: int, last_start: int, shift: int, n_sm: int) -> _Plan:
+    r"""Cut the live columns ``[0, g_num)`` into ranges for ``m`` rows on
+    ``n_sm`` SMs.  Where the last block is shifted (``shift != 0``) the
+    columns split at ``last_start`` into two segments, and no range crosses
+    it; each segment is cut into ranges of ``per`` column tiles (its last
+    range shorter).  ``per`` minimises the waves of units times a unit's
+    cost, ``ceil(units / n_sm) * (per + _UNIT_COST)``, the larger ``per`` on
+    a tie (fewer partials to combine): at 8,192 rows that is one unit a
+    block on 128 SMs from 1,646 live groups (7 tiles) to 43,008 (168), and
+    units of 7 tiles in 18 waves at 65,536 (256)."""
+    seg1_end = last_start if shift else g_num
     row_tiles = -(-m // TILE_ROWS)
-    col_tiles = -(-g_num // TILE_COLS)
-    want = max(1, min(col_tiles, resident // row_tiles))
-    per = -(-col_tiles // want)
-    return -(-col_tiles // per), per
+    tiles = [-(-n // TILE_COLS) for n in (seg1_end, g_num - seg1_end) if n > 0]
+    best = None
+    for per in range(1, max(tiles) + 1):
+        n_ranges = sum(-(-t // per) for t in tiles)
+        units = row_tiles * n_ranges
+        cost = -(-units // n_sm) * (per + _UNIT_COST)
+        if best is None or cost <= best[0]:
+            best = (cost, per, n_ranges, units)
+    _cost, per, n_ranges, units = best
+    span = per * TILE_COLS
+    return _Plan(span, -(-seg1_end // span), seg1_end, n_ranges, units, min(units, n_sm))
 
 
 def _check_inputs(tensors: dict, g_num: int, block: int) -> None:
@@ -228,7 +277,7 @@ def _check_inputs(tensors: dict, g_num: int, block: int) -> None:
 def _launch(rows, pops, g_cent, g_pops, g_num, pending, block) -> torch.Tensor:
     r"""One launch of the kernel: the route when ``pending`` is given (int32
     group per row), the twin when it is None (f32 best sim per row)."""
-    global route_launches, best_sim_launches, generic_launches
+    global route_launches, best_sim_launches, wgmma_launches, generic_launches
     argmax = pending is not None
     checked = {
         "rows": (rows, torch.int8, 2),
@@ -247,32 +296,37 @@ def _launch(rows, pops, g_cent, g_pops, g_num, pending, block) -> torch.Tensor:
         return torch.full((m,), _NEG, dtype=torch.float32, device=dev)
     out = torch.empty(m, dtype=_I32 if argmax else torch.float32, device=dev)
     lib = _lib()
-    bulk = f % 16 == 0 and rows.data_ptr() % 16 == 0 and g_cent.data_ptr() % 16 == 0
+    tma = (
+        f % 16 == 0 and f <= _TMA_MAX_F
+        and rows.data_ptr() % 16 == 0 and g_cent.data_ptr() % 16 == 0
+    )
+    g_cap = g_cent.shape[0]
     with torch.cuda.device(dev):
         idx = dev.index if dev.index is not None else torch.cuda.current_device()
-        if idx not in _resident:
-            _resident[idx] = lib.bb_route_resident_blocks()
-            if _resident[idx] < 1:
-                raise RuntimeError("route kernel: no block fits on this card")
-        n_chunks, per = _chunks(m, g_num, _resident[idx])
-        last_start, shift = _last_block(g_cent.shape[0], g_num, block)
-        part_sim = torch.empty((n_chunks, m), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((n_chunks, m) if argmax else (0,), dtype=_I32, device=dev)
+        if idx not in _sm_count:
+            _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        last_start, shift = _last_block(g_cap, g_num, block)
+        plan = _plan(m, g_num, last_start, shift, _sm_count[idx])
+        part_sim = torch.empty((plan.n_ranges, m), dtype=torch.float32, device=dev)
+        part_idx = torch.empty((plan.n_ranges, m) if argmax else (0,), dtype=_I32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bb_route(
             rows.data_ptr(), pops.data_ptr(), g_cent.data_ptr(), g_pops.data_ptr(),
             pending.data_ptr() if argmax else None, part_sim.data_ptr(),
             part_idx.data_ptr() if argmax else None, out.data_ptr(),
-            m, f, g_num, last_start, shift, n_chunks, per, int(argmax),
-            int(bulk), stream,
+            m, f, g_cap, g_num, plan.span, plan.s1, plan.seg1_end, shift,
+            plan.n_ranges, plan.grid, int(argmax), int(tma), stream,
         )
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"route kernel: TMA descriptor refused: CUresult {err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"route kernel launch failed: CUDA error {err}")
     if argmax:
         route_launches += 1
     else:
         best_sim_launches += 1
-    generic_launches += not bulk
+    wgmma_launches += tma
+    generic_launches += not tma
     return out
 
 
@@ -289,7 +343,8 @@ def route_groups(
     live group centroids, 0 where the row is not pending.
 
     Replaces ``bblean_tpu/engine/batch.py:203`` (``_route_groups``).  On
-    the card one launch of ``bb_route`` (``csrc/route.cu``); on the CPU
+    the card one call of ``bb_route`` (``csrc/route.cu``: the product, then
+    the ranges' combination); on the CPU
     :func:`route_groups_plain`.
     """
     if row_cent.device.type == "cpu":

@@ -27,17 +27,23 @@ as the phase ends:
    pending on 2 groups);
 2c. the sort plan's item-table kernel against its plain version, at the
    fit's and predict's batches, timed on the fit's keys;
-2d. the route kernel (``ops/route.py`` over ``csrc/route.cu``), both
+2d. the route kernels (``ops/route.py`` over ``csrc/route.cu``), both
    epilogues (the route's first argmax, the merge's best sim) bit-equal to
    their plain versions: 8,192 x 2048-bit rows against 65,536 groups at
-   1; 1,000; 17,364; 43,008 and 65,536 live and at the 1M fit's average
-   route, tied centroids in other blocks and chunks, a block that does not
-   divide the table, 264-bit rows (the generic path, counted), and the
-   merge's shape (the receivers' group capacity of phase 8 b); each
-   2048-bit case at the engine's block of 1,024 with the kernel's time
-   (profiler), its time per call (events), the plain version's time,
-   ``torch._int_mm`` over the same live blocks (the product alone, the
-   library yardstick), the bound and the share;
+   1; 1,000; 17,364; 43,008 and 65,536 live, at the 1M fit's average
+   route and at the 10M fits' average (22,000), tied centroids in other
+   blocks and ranges, a block that does not divide the table (the clamped
+   last block starts at 65,000, on no tile boundary), 264-bit rows (the
+   generic path, counted), the merge's shape (the receivers' group
+   capacity of phase 8 b), and a near tie (8192-bit rows: two centroids
+   whose exact fractions differ but round to one f32, the larger at the
+   later column, which must not win); every other case on the TMA path,
+   counted; each 2048-bit case at the engine's block of 1,024 with the
+   kernel's time (profiler), its time per call (events), the plain
+   version's time, ``torch._int_mm`` over the same live blocks (the
+   product alone, the library yardstick), the bound and the share.
+   ``python3 chip_smoke.py --only kernels`` runs phases 1, 2, 2b, 2c and
+   2d alone;
 3. the port on the CPU (plain search) and on the card (kernels) give the
    same labels for 20,000 fingerprints after the fit, a shuffled
    recluster and a refine, and the same predicted slots and sims for
@@ -137,7 +143,8 @@ as the phase ends:
 Each main-path run (each fit, each predict, the refine, each command-line
 run, each merge) counts the kernels' launches from zero and must launch the
 kernels it runs (the route in every fit, predict, refine and command-line
-run, the route's twin in every merge of phase 8 b; none on a generic path);
+run, the route's twin in every merge of phase 8 b; none on a generic path,
+every route and twin launch on the TMA path);
 the plain search, route and twin must never see CUDA tensors.  Phase 4's
 fits and phase 8 b's fits and merges hold sampled launches of the route
 and twin bit-equal to the plain versions on their own inputs and print
@@ -194,6 +201,18 @@ ROUTE_G_CAP = 1 << 16
 ROUTE_BLOCK = 1024
 ROUTE_LIVE = (1, 1000, 17_364, 43_008, 65_536)
 ROUTE_FIT = 1_646
+# The 10M fits' average live groups a route (about 22,000 over t = 0.65's
+# 1,221 routes, from 0 to 43,298)
+ROUTE_10M_AVG = 22_000
+# Phase 2d's near tie: rows of 8192 bits (unions up to 8192, where two
+# distinct Tanimoto fractions can share an f32), its table, and the columns
+# of the smaller and of the larger exact fraction (same tile; other ranges)
+NEAR_TIE_F = 8192
+NEAR_TIE_G_CAP = 4096
+NEAR_TIE_COLS = ((10, 20), (100, 3900))
+# The kernels of one call of the route's TMA path, as the profiler names
+# them: the product and the ranges' combination
+ROUTE_KERNELS = ("route_wgmma_kernel", "route_combine_kernel")
 MERGE_Q = 16_384
 MERGE_FIT = 755
 # Phase 7's sizes: centroids of the 1M tree that k-means clusters, its
@@ -356,7 +375,7 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
     ``reps`` calls, without the host dispatch around it; returns the mean
     and the number of launches it is over.  ``name`` may be a tuple: a
     call that launches one kernel of each name (the route's product and
-    its chunks' combination) takes the sum of their means, over the fewest
+    its ranges' combination) takes the sum of their means, over the fewest
     records any of them kept.  CUPTI now and then loses an activity record
     of a kernel this short, so a trace that holds fewer than ``reps``
     records of a name is taken again, up to three times; the last one
@@ -666,6 +685,45 @@ def _route_inputs(gen, m, f, g_cap, ties=()):
     )
 
 
+def route_near_tie(f: int) -> tuple[int, int, int, int]:
+    r"""(i1, u1, i2, u2): two Tanimoto fractions i1/u1 < i2/u2 with unions
+    at most ``f`` whose f32 quotients are equal (IEEE division), the
+    closest first: (u - k)/u for k = 1, 2, ... and two unions among the
+    top 64.  None exists where unions stay at or below 2048 (the gap
+    between two such fractions is above half an f32 step); at ``f`` =
+    8192 the first is (8190/8191, 8191/8192)."""
+    f32 = np.float32
+    for k in range(1, 64):
+        for u1 in range(f - 1, max(f - 64, k), -1):
+            for u2 in range(u1 + 1, f + 1):
+                i1, i2 = u1 - k, u2 - k
+                if f32(i1) / f32(u1) == f32(i2) / f32(u2):
+                    return i1, u1, i2, u2
+    raise ValueError(f"no near tie with unions of at most {f}")
+
+
+def route_near_tie_inputs(rng, m: int, f: int, g_cap: int, cols: tuple[int, int]):
+    r"""numpy inputs of a near tie: 0/1 rows and centroids at 20% density;
+    the even rows are one row R of ``max(i1, i2)`` ones, centroid
+    ``cols[0]`` meets R in i1 / u1 and centroid ``cols[1]`` in i2 / u2
+    (``route_near_tie(f)``: larger exactly, equal in f32); every third row
+    is not pending.  The route must give R's pending rows ``cols[0]``, the
+    earlier of the two columns of largest f32 sim."""
+    i1, u1, i2, u2 = route_near_tie(f)
+    pr = max(i1, i2)
+    rows = (rng.random((m, f)) < 0.2).astype(np.int8)
+    cent = (rng.random((g_cap, f)) < 0.2).astype(np.int8)
+    rows[::2] = 0
+    rows[::2, :pr] = 1
+    for c, i, u in ((cols[0], i1, u1), (cols[1], i2, u2)):
+        cent[c] = 0
+        cent[c, :i] = 1  # i bits shared with R
+        cent[c, pr:u] = 1  # u - pr bits outside R: the union is u
+    pending = np.ones(m, bool)
+    pending[::3] = False
+    return rows, rows.sum(1).astype(np.int32), cent, cent.sum(1).astype(np.int32), pending
+
+
 def _route_bound(m: int, f: int, g_num: int) -> dict:
     r"""The least time for one route (or twin) call: the rows, the live
     centroids, both popcount vectors and the pending flags read once and
@@ -691,15 +749,16 @@ def _int_mm_live(rows, cent, g_num: int, block: int):
 
 
 def phase_route() -> dict:
-    r"""Phase 2d: the route kernel (``ops/route.py``, ``csrc/route.cu``),
+    r"""Phase 2d: the route kernels (``ops/route.py``, ``csrc/route.cu``),
     both epilogues (route: first argmax; twin: max) bit-equal to their plain
     versions: M = 8192, F = 2048 against 65,536 groups at 1; 1,000;
-    17,364; 43,008 and 65,536 live, and at the 1M fit's average route;
-    tied centroids in other blocks and chunks; a block that does not divide
-    the table (the clamped last block); 264-bit rows (the generic path,
-    counted); the merge's own shape (Q = the receivers' group capacity).
-    Each F = 2048 case at the engine's block is timed: kernel ms (the
-    product and its chunks' combination, profiler), ms a call with dispatch
+    17,364; 43,008 and 65,536 live, at the 1M fit's and the 10M fits'
+    average routes; tied centroids in other blocks and ranges; a block that
+    does not divide the table (the clamped last block); 264-bit rows (the
+    generic path, counted); the merge's own shape (Q = the receivers' group
+    capacity); near ties at F = 8192 in one tile and across ranges.  Each
+    F = 2048 case at the engine's block is timed: kernel ms (the product
+    and its ranges' combination, profiler), ms a call with dispatch
     (events), the plain version's ms, ``torch._int_mm`` over the same live
     blocks (the library yardstick), the bound and the share."""
     from bblean_tpu_torch.ops import route
@@ -710,11 +769,19 @@ def phase_route() -> dict:
     cases = [(f"live {g}", base, g, ROUTE_BLOCK) for g in ROUTE_LIVE]
     cases += [
         ("fit", base, ROUTE_FIT, ROUTE_BLOCK),
+        ("10M average", base, ROUTE_10M_AVG, ROUTE_BLOCK),
         ("ties", _route_inputs(gen, ROUTE_M, N_FEATURES, ROUTE_G_CAP, ties), 43_008, ROUTE_BLOCK),
         ("clamped block 1000", base, ROUTE_G_CAP, 1000),
         ("F=264", _route_inputs(gen, ROUTE_M, 264, 4096), 3000, ROUTE_BLOCK),
         ("merge", _route_inputs(gen, MERGE_Q, N_FEATURES, MERGE_Q), MERGE_FIT, ROUTE_BLOCK),
     ]
+    rng = np.random.default_rng(23)
+    near_cols = {}
+    for cols in NEAR_TIE_COLS:
+        near = route_near_tie_inputs(rng, ROUTE_M, NEAR_TIE_F, NEAR_TIE_G_CAP, cols)
+        near = tuple(torch.from_numpy(a).to("cuda") for a in near)
+        near_cols[f"near tie at columns {cols}"] = cols
+        cases.append((f"near tie at columns {cols}", near, NEAR_TIE_G_CAP, ROUTE_BLOCK))
     out = {"route": {"timing": {}}, "twin": {"timing": {}}}
     for what, (rows, pops, cent, cpops, pending), g_num, block in cases:
         m, f = rows.shape
@@ -729,12 +796,13 @@ def phase_route() -> dict:
                 lambda: route.best_group_sim_plain(rows, pops, cent, cpops, g_num, block),
             ),
         }
-        before = (route.route_launches, route.best_sim_launches, route.generic_launches)
+        before = _route_counts()
         got = {k: kernel() for k, (kernel, _plain) in calls.items()}
         ref = {k: plain() for k, (_kernel, plain) in calls.items()}
         torch.cuda.synchronize()
-        after = (route.route_launches, route.best_sim_launches, route.generic_launches)
-        want = (before[0] + 1, before[1] + 1, before[2] + 2 * (f % 16 != 0))
+        after = _route_counts()
+        tma = f % 16 == 0
+        want = (before[0] + 1, before[1] + 1, before[2] + 2 * (not tma), before[3] + 2 * tma)
         if after != want:
             raise AssertionError(f"phase 2d {where}: launches {before} -> {after}, not {want}")
         if not torch.equal(got["route"], ref["route"]):
@@ -747,12 +815,21 @@ def phase_route() -> dict:
             tied[2::3] = False
             if not (bool((got["route"][tied] == 3).all()) and bool((got["twin"][1::3] == 1.0).all())):
                 raise AssertionError("phase 2d ties: a tie did not keep the first column")
+        if what in near_cols:
+            cols = near_cols[what]
+            i1, u1, _i2, _u2 = route_near_tie(f)
+            tied = pending.clone()
+            tied[1::2] = False
+            sim = torch.tensor(i1, dtype=torch.float32) / torch.tensor(u1, dtype=torch.float32)
+            if not (bool((got["route"][tied] == cols[0]).all())
+                    and bool((got["twin"][0::2] == sim.item()).all())):
+                raise AssertionError(f"phase 2d {where}: the near tie did not keep column {cols[0]}")
         line = f"phase 2d route and twin == plain: {where}"
         if f == N_FEATURES and block == ROUTE_BLOCK and what != "ties":
             bound = _route_bound(m, f, g_num)
             library = _int_mm_live(rows, cent, g_num, block)
             for k, (kernel, plain) in calls.items():
-                t = _time_case(kernel, plain, bound, name=("route_kernel", "route_combine_kernel"))
+                t = _time_case(kernel, plain, bound, name=ROUTE_KERNELS)
                 t["library_ms"] = _median_ms(library)
                 out[k]["timing"][what] = t
                 line += (
@@ -776,6 +853,7 @@ def _reset_counts() -> None:
     route.route_launches = 0
     route.best_sim_launches = 0
     route.generic_launches = 0
+    route.wgmma_launches = 0
 
 
 def _counts() -> tuple[int, int, int]:
@@ -784,11 +862,15 @@ def _counts() -> tuple[int, int, int]:
     return ts.launches, ts.row_launches, ts.plan_launches
 
 
-def _route_counts() -> tuple[int, int, int]:
-    r"""Launches of the route kernel: (route, twin, generic path)."""
+def _route_counts() -> tuple[int, int, int, int]:
+    r"""Launches of the route kernels: (route, twin, generic path, TMA
+    path); every launch of the route or the twin takes one of the paths."""
     from bblean_tpu_torch.ops import route
 
-    return route.route_launches, route.best_sim_launches, route.generic_launches
+    return (
+        route.route_launches, route.best_sim_launches, route.generic_launches,
+        route.wgmma_launches,
+    )
 
 
 # A phase's launches of every kernel of the kernels line
@@ -797,18 +879,31 @@ LAUNCH_KEYS = ("sorted", "rows", "plan", "route", "twin")
 
 def _add_launches(launches: dict) -> tuple[int, int, int]:
     r"""Add the counts since the last ``_reset_counts()`` to ``launches``;
-    returns the route kernel's (route, twin, generic path)."""
+    returns the route kernels' (route, twin, generic path)."""
     route_counts = _route_counts()
     for k, c in zip(LAUNCH_KEYS, _counts() + route_counts[:2]):
         launches[k] += c
-    return route_counts
+    return route_counts[:3]
 
 
 def _check_route_launches(n: int, generic: int, what: str) -> None:
     r"""A main-path run must launch the route (or twin) kernel, never on
-    the generic path."""
+    the generic path: every route and twin launch since the last
+    ``_reset_counts()`` took the TMA path (``wgmma_launches``)."""
     if n <= 0 or generic:
         raise AssertionError(f"{what}: {n} route kernel launches, {generic} on the generic path")
+    _check_tma_path(what)
+
+
+def _check_tma_path(what: str) -> None:
+    r"""Every route and twin launch since the last ``_reset_counts()``
+    went through the TMA kernel (none the generic ``mma.sync`` path)."""
+    n_route, n_twin, generic, tma = _route_counts()
+    if generic or tma != n_route + n_twin:
+        raise AssertionError(
+            f"{what}: {n_route} route + {n_twin} twin launches, {tma} on the TMA path, "
+            f"{generic} on the generic path"
+        )
 
 
 def phase_cpu_vs_cuda() -> None:
@@ -1480,6 +1575,7 @@ def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
             f"the sharded run took the generic path {ts.generic_launches} times "
             f"(tile search) and {_route_counts()[2]} times (route)"
         )
+    _check_tma_path("the sharded run")
     return forest, {
         "fit_s": t1 - t0, "merge_s": t2 - t1, "n_clusters": ncl,
         "fit_launches": fit_counts, "merge_launches": merge_counts,
@@ -2371,6 +2467,15 @@ def _kernel_record(name, source, replaces, launches, phase, library_ms=None) -> 
     }
 
 
+def _only_kernels() -> None:
+    r"""Phases 1, 2, 2b, 2c and 2d alone (no kernels line, no result line)."""
+    phase_device()
+    phase_kernel()
+    phase_row_kernel()
+    phase_plan()
+    phase_route()
+
+
 def _only_sharded() -> None:
     r"""Phases 1 and 8 alone (no kernels line, no result line)."""
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
@@ -2420,6 +2525,8 @@ def main() -> None:
     import signal
 
     signal.signal(signal.SIGTERM, lambda signum, _frame: sys.exit(128 + signum))
+    if sys.argv[1:] == ["--only", "kernels"]:
+        return _only_kernels()
     if sys.argv[1:] == ["--only", "sharded"]:
         return _only_sharded()
     if sys.argv[1:] == ["--only", "bitbirch"]:

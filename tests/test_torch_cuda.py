@@ -1,7 +1,8 @@
 r"""The port on a CUDA card: the tile-search kernels (sorted and per-row
 launch modes), the sort plan's item-table kernel and the route kernel
-(both epilogues: the route's first argmax and the merge's best sim)
-against their plain versions, CPU and CUDA fits giving the
+(both epilogues: the route's first argmax and the merge's best sim; the
+TMA path and the generic one, near ties, the clamped last block, ragged
+rows and more work units than SMs) against their plain versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
@@ -455,17 +456,20 @@ def _route_case(rng, m, f, g_cap, ties=()):
 
 def _route_both(args, g_num, block):
     r"""Both kernels and both plain versions on the same inputs; each
-    wrapper must count one launch (none when no group is live)."""
+    wrapper must count one launch (none when no group is live), on the TMA
+    path exactly where F % 16 == 0 and both tables are 16-byte aligned."""
     from bblean_tpu_torch.ops import route
 
     rows, pops, cent, cpops, pending = args
-    before = (route.route_launches, route.best_sim_launches)
+    before = (route.route_launches, route.best_sim_launches, route.wgmma_launches)
     got = (
         route.route_groups(rows, pops, cent, cpops, g_num, pending, block),
         route.best_group_sim(rows, pops, cent, cpops, g_num, block),
     )
     launched = int(g_num > 0)
     assert (route.route_launches, route.best_sim_launches) == (before[0] + launched, before[1] + launched)
+    tma = rows.shape[1] % 16 == 0 and rows.data_ptr() % 16 == 0 and cent.data_ptr() % 16 == 0
+    assert route.wgmma_launches == before[2] + 2 * launched * tma
     ref = (
         route.route_groups_plain(rows, pops, cent, cpops, g_num, pending, block),
         route.best_group_sim_plain(rows, pops, cent, cpops, g_num, block),
@@ -502,15 +506,16 @@ def test_route_kernel_matches_plain(cuda, m, f, g_cap, g_num, block) -> None:
 
 
 def test_route_kernel_keeps_the_first_of_ties_across_chunks(cuda) -> None:
-    r"""At M = 8192 the live columns split into chunks on the grid: copies
-    of centroid 3 in other blocks and chunks tie at 1.0, and column 3 must
-    win; the main path's width takes no generic launch."""
+    r"""At M = 8192 the live columns split into column ranges (the units'
+    second coordinate, ``route._plan``): copies of centroid 3 in other
+    blocks and ranges tie at 1.0, and column 3 must win; the main path's
+    width takes no generic launch."""
     from bblean_tpu_torch.ops import route
 
     m, g_num = 8192, 4096
-    n_chunks, per = route._chunks(m, g_num, route._lib().bb_route_resident_blocks())
-    assert n_chunks > 1
-    ties = [3 + k * per * route.TILE_COLS + 5 for k in range(1, n_chunks)]
+    plan = route._plan(m, g_num, 0, 0, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.n_ranges > 1
+    ties = [3 + k * plan.span + 5 for k in range(1, plan.n_ranges)]
     args = _route_case(np.random.default_rng(9), m, 2048, 8192, ties=[20, 1500, *ties])
     generic = route.generic_launches
     (idx, sim), (ref_idx, ref_sim) = _route_both(args, g_num, 1024)
@@ -552,3 +557,67 @@ def test_route_wrapper_rejects_bad_inputs(cuda) -> None:
         route.best_group_sim(rows[:, :128].contiguous(), pops, cent, cpops, 100, 64)
     with pytest.raises(ValueError, match="pending must have"):
         route.route_groups(rows, pops, cent, cpops, 100, pending[:-1], 64)
+
+
+@pytest.mark.parametrize(
+    "m,g_cap,g_num,block",
+    [
+        (37, 4096, 3000, 1024),  # M below one row tile
+        (8191, 4096, 4096, 1024),  # M one short of 64 row tiles
+        (8192, 4096, 4096, 1000),  # clamped last block at 4,000: on no tile boundary
+        (8192, 65536, 65536, 1000),  # clamped at 65,000 (phase 2d's case)
+        (300, 1024, 100, 1024),  # g_num below one column tile
+        (16384, 16384, 755, 1024),  # the merge's shape (Q = 16,384)
+    ],
+)
+def test_route_tma_path_matches_plain(cuda, m, g_cap, g_num, block) -> None:
+    r"""The TMA path on ragged rows, the clamped last block where no tile
+    divides its first column, fewer live groups than one column tile and
+    the merge's shape: bit-equal to the plain versions, no generic launch."""
+    from bblean_tpu_torch.ops import route
+
+    rng = np.random.default_rng(m + g_cap + g_num + block)
+    args = _route_case(rng, m, 2048, g_cap, ties=[20, 41, 2000 % g_cap])
+    last_start, shift = route._last_block(g_cap, g_num, block)
+    if block == 1000:
+        assert shift != 0 and last_start % route.TILE_COLS != 0
+    generic = route.generic_launches
+    (idx, sim), (ref_idx, ref_sim) = _route_both(args, g_num, block)
+    assert route.generic_launches == generic
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(sim.view(torch.int32), ref_sim.view(torch.int32))
+
+
+def test_route_tma_path_with_more_units_than_sms(cuda) -> None:
+    r"""20,000 rows (157 row tiles) against 3,000 live groups: more work
+    units than SMs, so the persistent blocks walk several units each."""
+    from bblean_tpu_torch.ops import route
+
+    m, g_num = 20_000, 3000
+    plan = route._plan(m, g_num, 0, 0, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.units > plan.grid
+    args = _route_case(np.random.default_rng(11), m, 2048, 4096, ties=[20, 1500])
+    (idx, sim), (ref_idx, ref_sim) = _route_both(args, g_num, 1024)
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(sim.view(torch.int32), ref_sim.view(torch.int32))
+
+
+@pytest.mark.parametrize("cols", [(10, 20), (100, 3900), (20, 10)])
+def test_route_tma_path_keeps_the_first_column_of_a_near_tie(cuda, cols) -> None:
+    r"""8192-bit rows: centroid ``cols[0]`` and centroid ``cols[1]`` meet
+    the even rows in two exact fractions that differ but round to one f32
+    (``chip_smoke.route_near_tie``), the larger at ``cols[1]``.  The route
+    keeps the earlier column, as the plain version does: a rule that
+    skipped divisions by the exact fractions alone would take the larger
+    one where it comes later."""
+    import chip_smoke
+    from bblean_tpu_torch.ops import route
+
+    arrays = chip_smoke.route_near_tie_inputs(np.random.default_rng(5), 512, 8192, 4096, cols)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    (idx, sim), (ref_idx, ref_sim) = _route_both(args, 4096, 1024)
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(sim.view(torch.int32), ref_sim.view(torch.int32))
+    tied = args[4].clone()
+    tied[1::2] = False
+    assert bool((idx[tied] == min(cols)).all())

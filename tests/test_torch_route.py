@@ -10,7 +10,8 @@ group live, duplicate centroids in different blocks, pending masks with
 holes, an all-zero row against an all-zero centroid (the union clamps to
 1), and widths of 2048, 264 and 100 bits.  The CUDA kernel itself runs
 only on a card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 2d),
-where it is held to these plain versions.
+where it is held to these plain versions; here are the unit planner that
+cuts its work (``route._plan``) and the near-tie inputs its card tests use.
 """
 
 import jax
@@ -21,6 +22,7 @@ import torch
 
 from bblean_tpu.engine import batch as jb
 from bblean_tpu.parallel import sharded as js
+import chip_smoke
 from bblean_tpu_torch.engine import batch as tb
 from bblean_tpu_torch.ops import route
 from bblean_tpu_torch.parallel import sharded as ts
@@ -170,17 +172,133 @@ def test_last_block_maps_columns_like_dynamic_slice(g_cap, block) -> None:
         assert got.max() < g_cap
 
 
-@pytest.mark.parametrize(
-    "m,g_num,resident",
-    [(8192, 43008, 264), (8192, 17364, 264), (8192, 1, 264), (65536, 20000, 264), (1, 128, 264), (300, 65536, 132)],
-)
-def test_chunks_cover_the_live_columns(m, g_num, resident) -> None:
-    r"""The chunks on the grid's second axis cover every live column tile
-    once, none is empty, and the grid stays within the resident blocks
-    (one chunk at least)."""
-    n, per = route._chunks(m, g_num, resident)
-    col_tiles = -(-g_num // route.TILE_COLS)
+def _plan_ranges(plan, g_num: int, shift: int) -> list[tuple[int, int, int]]:
+    r"""(first column, end column, row shift) of each range of ``plan``, in
+    order: what ``csrc/route.cu``'s ``range_of`` gives range ``s``."""
+    out = []
+    for s in range(plan.n_ranges):
+        if s < plan.s1:
+            c0 = s * plan.span
+            out.append((c0, min(c0 + plan.span, plan.seg1_end), 0))
+        else:
+            c0 = plan.seg1_end + (s - plan.s1) * plan.span
+            out.append((c0, min(c0 + plan.span, g_num), shift))
+    return out
+
+
+def _check_plan(m: int, g_cap: int, g_num: int, block: int, n_sm: int):
+    r"""The unit plan of one call against its contract: the ranges hold every
+    live column once, in column order; each is a whole number of column
+    tiles but the last of its segment; none straddles the clamped last
+    block's first column; the shifted rows are those of ``_last_block``;
+    the grid is min(units, SMs)."""
+    last_start, shift = route._last_block(g_cap, g_num, block)
+    plan = route._plan(m, g_num, last_start, shift, n_sm)
+    ranges = _plan_ranges(plan, g_num, shift)
+    assert len(ranges) == plan.n_ranges >= 1
+    assert plan.span % route.TILE_COLS == 0
+    assert ranges[0][0] == 0 and ranges[-1][1] == g_num
+    for (c0, c1, sh), nxt in zip(ranges, ranges[1:] + [None]):
+        assert c0 < c1 <= c0 + plan.span
+        if nxt is not None:
+            assert nxt[0] == c1  # contiguous, in column order
+            assert c1 - c0 == plan.span or c1 == last_start
+        assert not c0 < last_start < c1 or shift == 0  # no straddle
+        assert sh == (shift if c0 >= last_start else 0)
     row_tiles = -(-m // route.TILE_ROWS)
-    assert 1 <= n <= col_tiles and per >= 1
-    assert (n - 1) * per < col_tiles <= n * per
-    assert n == 1 or row_tiles * n <= resident
+    assert plan.units == row_tiles * plan.n_ranges
+    assert plan.grid == min(plan.units, n_sm)
+    return plan, ranges
+
+
+@pytest.mark.parametrize(
+    "m,g_cap,block,n_sm",
+    [(8192, 65536, 1024, 132), (8192, 65536, 1000, 132), (16384, 16384, 1024, 132),
+     (37, 64, 24, 132), (20000, 4096, 1024, 132), (8191, 65536, 1000, 114)],
+)
+def test_chunks_cover_the_live_columns(m, g_cap, block, n_sm) -> None:
+    r"""The chunks of the live columns are the unit plan's column ranges
+    (``route._plan``).  From 1 live group to the whole table (65,536 at the
+    engine's shapes), every live column lies in exactly one range, in
+    column order, and no range straddles the clamped last block."""
+    lives = {1, 2, 255, 256, 257, 755, 1000, 1646, 4096, 17364, 22000, 43008, 65000, 65001, g_cap}
+    for g_num in sorted(g for g in lives if g <= g_cap):
+        _check_plan(m, g_cap, g_num, block, n_sm)
+
+
+def test_plan_splits_at_a_last_start_no_tile_divides() -> None:
+    r"""Block 1000 of a 65,536-group table: the last block starts at 65,000
+    (no multiple of 256) and reads rows shifted by -464; a range boundary
+    falls there and the shifted range starts at it."""
+    plan, ranges = _check_plan(8192, 65536, 65536, 1000, 132)
+    assert route._last_block(65536, 65536, 1000) == (65000, -464)
+    assert (65000, 65536, -464) in ranges and plan.seg1_end == 65000
+    assert all(sh == 0 for c0, _c1, sh in ranges if c0 < 65000)
+
+
+@pytest.mark.parametrize("g_num,units", [(1646, 128), (43008, 128), (755, 128)])
+def test_plan_fills_the_card(g_num, units) -> None:
+    r"""At the 1M fit's average route (1,646 groups: 7 column tiles), at the
+    10M fits' final groups and at the merge's shape, the units take 128 of
+    132 SMs at once, one unit each: no block waits on a second wave."""
+    m = 16384 if g_num == 755 else 8192
+    plan, _ranges = _check_plan(m, 65536, g_num, 1024, 132)
+    assert plan.units == units and plan.grid == units
+
+
+def test_plan_has_more_units_than_sms_where_that_balances() -> None:
+    r"""Every group live (256 column tiles): more units than SMs, in waves
+    that leave the SMs within one unit of each other."""
+    plan, _ranges = _check_plan(8192, 65536, 65536, 1024, 132)
+    assert plan.units > 132 and plan.grid == 132
+    waves = -(-plan.units // 132)
+    assert waves * plan.span // route.TILE_COLS <= 256 * 64 / 132 + plan.span // route.TILE_COLS
+
+
+def test_near_tie_helper_gives_distinct_fractions_with_one_f32() -> None:
+    r"""``chip_smoke.route_near_tie``: two Tanimoto fractions that differ
+    exactly but whose IEEE f32 quotients are equal (numpy and torch), with
+    unions within the rows' 8192 bits, so the card's near-tie test is not
+    vacuous; none exists with unions of at most 4096."""
+    from fractions import Fraction
+
+    i1, u1, i2, u2 = chip_smoke.route_near_tie(8192)
+    assert Fraction(i1, u1) < Fraction(i2, u2) and max(u1, u2) <= 8192
+    f32 = np.float32
+    assert f32(i1) / f32(u1) == f32(i2) / f32(u2)
+    t = torch.tensor([i1, i2], dtype=torch.float32) / torch.tensor([u1, u2], dtype=torch.float32)
+    assert t[0].item() == t[1].item()
+    with pytest.raises(ValueError, match="no near tie"):
+        chip_smoke.route_near_tie(4096)
+
+
+@pytest.mark.parametrize("cols", [(10, 20), (20, 10), (3, 60)])
+def test_near_tie_keeps_the_earlier_column_in_jax_and_plain(cols) -> None:
+    r"""On the near-tie inputs (8192-bit rows; the even rows meet
+    ``cols[0]`` in the smaller exact fraction and ``cols[1]`` in the larger,
+    equal in f32) the JAX route and the plain version both give the even
+    pending rows the earlier column, and the same best sims."""
+    rows, pops, cent, cpops, pending = chip_smoke.route_near_tie_inputs(
+        np.random.default_rng(1), 6, 8192, 64, cols,
+    )
+    i1, u1, i2, u2 = chip_smoke.route_near_tie(8192)
+    assert (rows[0] @ cent[cols[0]].astype(np.int64), rows[0].sum() + cpops[cols[0]] - i1) == (i1, u1)
+    assert (rows[0] @ cent[cols[1]].astype(np.int64), rows[0].sum() + cpops[cols[1]] - i2) == (i2, u2)
+    ref = np.asarray(_jax_route(
+        jnp.asarray(rows), jnp.asarray(pops), jnp.asarray(cent), jnp.asarray(cpops),
+        jnp.int32(64), jnp.asarray(pending), block=32,
+    ))
+    got = route.route_groups_plain(
+        *map(torch.from_numpy, (rows, pops, cent, cpops)), 64, torch.from_numpy(pending), 32,
+    )
+    np.testing.assert_array_equal(got.numpy(), ref)
+    even = pending.copy()
+    even[1::2] = False
+    assert (ref[even] == min(cols)).all()
+    ref_sim = np.asarray(_jax_best(
+        jnp.asarray(rows), jnp.asarray(pops), jnp.asarray(cent), jnp.asarray(cpops),
+        jnp.int32(64), block=32,
+    ))
+    sim = route.best_group_sim_plain(*map(torch.from_numpy, (rows, pops, cent, cpops)), 64, 32)
+    np.testing.assert_array_equal(sim.numpy().view(np.int32), ref_sim.view(np.int32))
+    assert (ref_sim[0::2] == np.float32(i1) / np.float32(u1)).all()
