@@ -30,6 +30,10 @@ only where a cluster's sums pass 2^24 (tests hold the rest to JAX exactly):
   :data:`host_syncs`); the ``lax.scan`` over a window's batches becomes a
   Python loop, and all-padding batches of a window skip their step (it
   would commit nothing).
+- JAX compiles the step into one program; here each insert round and each
+  split pass is one program of ``engine/graphs.py``, a CUDA graph on the
+  card replayed once per round, while the route, the row Gram, the sort
+  plan and the refresh are dispatched once per step.
 - JAX donated the state to its jitted steps; here the step functions
   update the state's tables IN PLACE and return the state with its new
   counters.  Callers that need the old tables must copy them first.
@@ -56,12 +60,14 @@ only where a cluster's sums pass 2^24 (tests hold the rest to JAX exactly):
 
 from __future__ import annotations
 
+import functools
 import typing as tp
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from bblean_tpu_torch.engine import graphs
 from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
 from bblean_tpu_torch.ops.merges import merge_accept_batch
 from bblean_tpu_torch.ops.packing import (
@@ -90,6 +96,15 @@ _CENT_DT = torch.int8
 # Device-to-host scalar reads made by the engine (round-loop conditions,
 # split predicates, live-group counts, flush-boundary pulls)
 host_syncs = 0
+
+# A replayed round or split pass advances the kernels' launch counts by what
+# its capture counted (``engine/graphs.py``)
+graphs.count_launches(
+    tile_search, "launches", "row_launches", "generic_launches", "plan_launches"
+)
+graphs.count_launches(
+    route, "route_launches", "best_sim_launches", "wgmma_launches", "generic_launches"
+)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -131,6 +146,23 @@ class BatchState(tp.NamedTuple):
     g_pops: torch.Tensor  # (G_cap,) int32
     g_count: torch.Tensor  # (G_cap,) int32 clusters in the group
     g_num: torch.Tensor  # () int32 live groups
+
+
+# The three counters of a state, and its tables (every other field, in
+# field order): a graphed program reads its counters from static buffers
+# and its tables by address (``engine/graphs.py``)
+_COUNTERS = ("num_ls", "num", "g_num")
+_TABLES = tuple(f for f in BatchState._fields if f not in _COUNTERS)
+
+
+def _tables(state: BatchState) -> tuple[torch.Tensor, ...]:
+    return tuple(getattr(state, f) for f in _TABLES)
+
+
+def _state_of(tables: tuple, bufs: graphs.Buffers) -> BatchState:
+    r"""The state a program sees: ``tables`` and the counters in ``bufs``
+    (None where the program keeps none)."""
+    return BatchState(**dict(zip(_TABLES, tables)), **{c: bufs.get(c) for c in _COUNTERS})
 
 
 def _init_state(
@@ -288,13 +320,14 @@ def _flat2(tab: torch.Tensor) -> torch.Tensor:
 
 
 def _tanimoto_gram(
-    cent: torch.Tensor, pop: torch.Tensor
+    cent: torch.Tensor, pop: torch.Tensor, out: torch.Tensor | None = None
 ) -> torch.Tensor:
-    r"""All-pairs f32 Tanimoto of 0/1 rows (the leader election's sims)."""
+    r"""All-pairs f32 Tanimoto of 0/1 rows (the leader election's sims),
+    written into ``out`` when given."""
     m = cent.shape[0]
     inter = _int8_gram(_pad_int8(cent, 17), cent, m).to(torch.float32)
     union = (pop[:, None] + pop[None, :]).to(torch.float32) - inter
-    return inter / union.clamp_min(1.0)
+    return torch.div(inter, union.clamp_min(1.0), out=out)
 
 
 def _route_groups(
@@ -669,11 +702,54 @@ def _batch_step_impl(
     pending rows (label-preserving, see ``_insert_round``); ``narrow=0``
     disables the narrow phase.  Each round's loop condition is one scalar
     read on the host.
+
+    Each round is a program of ``engine/graphs.py`` (a CUDA graph on the
+    card: :func:`_wide_round`, :func:`_narrow_round`).  The step writes its
+    inputs into the programs' static buffers once (:func:`_stage_step`),
+    the rounds carry their state there, and the step hands out copies.
     """
     m = row_ls.shape[0]
-    dev = row_ls.device
-    kw = dict(criterion=criterion)
+    bufs = _stage_step(
+        state, row_ls, row_n, row_cent, row_pk, row_pop, threshold, tolerance,
+        criterion=criterion, block=block,
+    )
+    tables = _tables(state)
+    wide = functools.partial(_wide_round, criterion=criterion)
+    rounds = 0
+    limit = narrow if 0 < narrow < m else 0
+    while rounds < max_rounds and _host_int(_isum(bufs["pending"])) > limit:
+        _carry(bufs, graphs.run(("wide", criterion), wide, tables, bufs))
+        rounds += 1
 
+    if 0 < narrow < m:
+        compact = functools.partial(_narrow_round, criterion=criterion, narrow=narrow)
+        while rounds < max_rounds and bool(_host(bufs["pending"].any())):
+            _carry(bufs, graphs.run(("narrow", criterion, narrow), compact, tables, bufs))
+            rounds += 1
+
+    state = state._replace(**{c: bufs[c].clone() for c in _COUNTERS})
+    assigned = bufs["assigned"].clone()
+    state = _refresh_touched(state, assigned, row_ls, row_n)
+    return state, assigned, _isum(bufs["pending"]) * 1000 + rounds
+
+
+def _stage_step(
+    state: BatchState,
+    row_ls: torch.Tensor,
+    row_n: torch.Tensor,
+    row_cent: torch.Tensor,
+    row_pk: torch.Tensor,
+    row_pop: torch.Tensor,
+    threshold: torch.Tensor,
+    tolerance: torch.Tensor,
+    *,
+    criterion: str,
+    block: int,
+) -> graphs.Buffers:
+    r"""A step's static buffers, filled: its rows, the step-constant work
+    and the round state's start (all rows pending, none assigned, no
+    strikes, the state's counters)."""
+    m = row_ls.shape[0]
     # Step-constant work: the route, the all-pairs row sims and the
     # search's sort plan depend only on the rows and the routing table,
     # which no round changes
@@ -682,50 +758,82 @@ def _batch_step_impl(
         row_cent, row_pop, state.g_cent, state.g_pops,
         _host_int(state.g_num), pending0, block,
     )
-    row_sims = (
-        None if criterion == "never-merge" else _tanimoto_gram(row_cent, row_pop)
-    )
     guard_g = state.g_ls.shape[0] - 1
     order, skey, items = sorted_search_plan(
         torch.where(pending0, row_group, guard_g)
     )
-    search_plan = (row_pk[order], row_pop[order], skey, order, items)
+    inputs = dict(
+        row_ls=row_ls, row_n=row_n, row_cent=row_cent, row_pk=row_pk,
+        row_pop=row_pop, threshold=threshold, tolerance=tolerance,
+        row_group=row_group, srows=row_pk[order], spops=row_pop[order],
+        skey=skey, order=order, items=items, pending=pending0,
+        **{c: getattr(state, c) for c in _COUNTERS},
+    )
+    specs = {k: (v.shape, v.dtype) for k, v in inputs.items()}
+    specs.update(assigned=((m,), _I32), strikes=((m,), _I32))
+    if criterion != "never-merge":
+        specs["row_sims"] = ((m, m), torch.float32)
+    bufs = graphs.buffers("step", row_ls.device, specs)
+    for k, v in inputs.items():
+        bufs[k].copy_(v)
+    bufs["assigned"].fill_(-1)
+    bufs["strikes"].zero_()
+    if criterion != "never-merge":
+        _tanimoto_gram(row_cent, row_pop, out=bufs["row_sims"])
+    return bufs
 
-    pending = pending0
-    assigned = torch.full((m,), -1, dtype=_I32, device=dev)
-    strikes = torch.zeros((m,), dtype=_I32, device=dev)
-    rounds = 0
-    limit = narrow if 0 < narrow < m else 0
-    while rounds < max_rounds and _host_int(_isum(pending)) > limit:
-        state, pending, assigned, strikes = _insert_round(
-            state, pending, assigned, strikes, row_group,
-            row_ls, row_n, row_cent, row_pk, row_pop,
-            threshold, tolerance, row_sims=row_sims,
-            search_plan=search_plan, **kw,
-        )
-        rounds += 1
-    del row_sims, search_plan
 
-    if 0 < narrow < m:
-        mn = narrow
-        while rounds < max_rounds and bool(_host(pending.any())):
-            # Compact the pending rows to the front (stable: original
-            # order kept, which is all the round logic depends on)
-            sel = torch.sort((~pending).to(torch.uint8), stable=True).indices[:mn]
-            state, sub_pending, sub_assigned, sub_strikes = _insert_round(
-                state, pending[sel], torch.full((mn,), -1, dtype=_I32, device=dev),
-                strikes[sel], row_group[sel],
-                row_ls[sel], row_n[sel], row_cent[sel], row_pk[sel],
-                row_pop[sel], threshold, tolerance, **kw,
-            )
-            assigned[sel] = torch.where(sub_assigned >= 0, sub_assigned, assigned[sel])
-            pending = pending.clone()
-            pending[sel] = sub_pending
-            strikes[sel] = sub_strikes
-            rounds += 1
+# What a round's program returns, in order: the carried row state and the
+# state's new counters
+_CARRIED = ("pending", "assigned", "strikes") + _COUNTERS
+_PLAN = ("srows", "spops", "skey", "order", "items")
 
-    state = _refresh_touched(state, assigned, row_ls, row_n)
-    return state, assigned, _isum(pending) * 1000 + rounds
+
+def _carry(bufs: graphs.Buffers, out: tuple[torch.Tensor, ...]) -> None:
+    r"""Copy a round's outputs into the buffers the next round reads."""
+    for name, value in zip(_CARRIED, out):
+        bufs[name].copy_(value)
+
+
+def _wide_round(
+    tables: tuple, bufs: graphs.Buffers, *, criterion: str
+) -> tuple[torch.Tensor, ...]:
+    r"""One full-width round on the step's sorted search plan, as a program
+    of ``engine/graphs.py``: reads the step's buffers, updates ``tables``
+    in place, returns the :data:`_CARRIED` values."""
+    state, pending, assigned, strikes = _insert_round(
+        _state_of(tables, bufs), bufs["pending"], bufs["assigned"],
+        bufs["strikes"], bufs["row_group"], bufs["row_ls"], bufs["row_n"],
+        bufs["row_cent"], bufs["row_pk"], bufs["row_pop"], bufs["threshold"],
+        bufs["tolerance"], criterion=criterion, row_sims=bufs.get("row_sims"),
+        search_plan=tuple(bufs[k] for k in _PLAN),
+    )
+    return (pending, assigned, strikes) + tuple(getattr(state, c) for c in _COUNTERS)
+
+
+def _narrow_round(
+    tables: tuple, bufs: graphs.Buffers, *, criterion: str, narrow: int
+) -> tuple[torch.Tensor, ...]:
+    r"""One compacted round over the ``narrow`` lowest-index pending rows on
+    the per-row search (row sims computed in-round), scattered back to full
+    width; a program as :func:`_wide_round` is."""
+    pending, assigned, strikes = bufs["pending"], bufs["assigned"], bufs["strikes"]
+    # Compact the pending rows to the front (stable: original order kept,
+    # which is all the round logic depends on)
+    sel = torch.sort((~pending).to(torch.uint8), stable=True).indices[:narrow]
+    rows = [bufs[k][sel] for k in ("row_group", "row_ls", "row_n", "row_cent", "row_pk", "row_pop")]
+    state, sub_pending, sub_assigned, sub_strikes = _insert_round(
+        _state_of(tables, bufs), pending[sel],
+        torch.full((narrow,), -1, dtype=_I32, device=sel.device), strikes[sel],
+        *rows, bufs["threshold"], bufs["tolerance"], criterion=criterion,
+    )
+    assigned = assigned.clone()
+    assigned[sel] = torch.where(sub_assigned >= 0, sub_assigned, assigned[sel])
+    pending = pending.clone()
+    pending[sel] = sub_pending
+    strikes = strikes.clone()
+    strikes[sel] = sub_strikes
+    return (pending, assigned, strikes) + tuple(getattr(state, c) for c in _COUNTERS)
 
 
 def _refresh_touched(
@@ -796,7 +904,23 @@ def _split_topk_impl(
     takes lower indices first on ties; a stable descending sort does too.
     A split whose new group would reach the guard slot waits (it counts as
     remaining) until the host grows the group table.
+
+    The pass is a program of ``engine/graphs.py`` (a CUDA graph on the
+    card, :func:`_split_pass`) that reads ``g_num`` from a static buffer.
     """
+    bufs = graphs.buffers("split", state.g_num.device, {"g_num": ((), state.g_num.dtype)})
+    bufs["g_num"].copy_(state.g_num)
+    split = functools.partial(_split_pass, k=k, fanout=fanout)
+    g_num, n_left = graphs.run(("split", k, fanout), split, _tables(state), bufs)
+    return state._replace(g_num=g_num.clone()), n_left.clone()
+
+
+def _split_pass(
+    tables: tuple, bufs: graphs.Buffers, *, k: int, fanout: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    r"""The body of :func:`_split_topk_impl`: updates ``tables`` in place,
+    returns (new ``g_num``, oversized groups remaining)."""
+    state = _state_of(tables, bufs)
     g_cap = state.g_count.shape[0]
     live = torch.arange(g_cap, device=state.g_count.device) < state.g_num
     counts = torch.where(live, state.g_count, 0)
@@ -806,7 +930,7 @@ def _split_topk_impl(
     active = active & (state.g_num + _icumsum(active.to(_I32)) - 1 < g_cap - 1)
     n_over = _isum(counts > fanout)
     state = _split_groups_device_impl(state, gs, active)
-    return state, n_over - _isum(active)
+    return state.g_num, n_over - _isum(active)
 
 
 def _split_groups_device_impl(

@@ -15,7 +15,9 @@ _BIT_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)
 
 
 def _shifts(device: torch.device) -> torch.Tensor:
-    return torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=device)
+    r""":data:`_BIT_SHIFTS` made on ``device`` (no copy from the host, so
+    that a CUDA graph can capture it)."""
+    return (7 - torch.arange(8, device=device)).to(torch.uint8)
 
 
 def unpack_fingerprints_device(

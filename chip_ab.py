@@ -1,7 +1,9 @@
 r"""Side-by-side run of two checkouts of the port on one NVIDIA GPU.
 
 Run from the repository root:
-``python3 chip_ab.py OTHER_DIR [--order ABBA] [--out PATH]``.
+``python3 chip_ab.py OTHER_DIR [--order ABBA] [--out PATH]``, or
+``python3 chip_ab.py --order '' --rounds --dispatch`` for this checkout
+alone.
 ``OTHER_DIR`` holds another checkout's ``bblean_tpu_torch/`` (for example
 the parent commit: ``git archive HEAD bblean_tpu_torch | tar -x -C DIR``,
 in a directory that ``.gitignore`` lists).  Each letter of ``--order`` is
@@ -23,13 +25,12 @@ differs most between the two; ``--cprofile`` fits once more per checkout
 under ``cProfile`` and prints the functions whose host time differs most;
 ``--events`` fits once more per checkout (ABBA) with CUDA events around
 each launch of the search and plan wrappers and prints their summed
-device time beside the fit's wall; ``--rounds`` times, per checkout
-(ABBA), an emulated insert round (60 small elementwise kernels, one search
-launch at the fit's average shape, one scalar read) against the same round
-without the search, for each front end: the wall one launch adds to a
-round; and the host time of one call of each wrapper enqueued behind
-20 ms of device work (``torch.cuda._sleep``), which shows whether the call
-waits for the device; ``--timers`` fits once more per checkout (ABBA)
+device time beside the fit's wall; ``--rounds`` times, in this checkout
+only, one insert round replayed as a CUDA graph against the same round
+dispatched op by op, at the wide (8,192) and narrow (2,048) widths
+(:func:`_round_walls`), before any fit; ``--dispatch`` fits this
+checkout in turns with its programs replayed and with them dispatched
+(:func:`_graphs_against_dispatch`); ``--timers`` fits once more per checkout (ABBA)
 with host timers (inclusive wall) around the engine's step functions, its
 host reads and the search wrappers.  Imports no JAX.
 """
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import functools
 import json
 import os
 import pstats
@@ -192,73 +194,145 @@ def _event_timed(label: str, tree_dir: str, dev_fps) -> dict:
     return {"label": label, "wall_s": wall, "by_function_ms": per}
 
 
-def _round_walls(label: str, tree_dir: str, reps: int = 200) -> dict:
-    r"""Median wall of an emulated round with and without one search launch
-    at the fit's average shapes (``chip_smoke.SORTED_FIT``, ``ROWS_FIT``)."""
-    _BatchTree, _engine, ts = _use(tree_dir)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    g, fc, f8 = 4096, 256, 256
-    x = torch.rand(8192, device="cuda")
-    calls = {"none": lambda: None}
-    for front, m, route in (("sorted", 8192, cs.SORTED_FIT), ("rows", 2048, cs.ROWS_FIT)):
-        row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending = cs._search_case(
-            gen, m, g, fc, f8, route
+def _round_walls(tree_dir: str, dev_fps, reps: int = 40) -> dict:
+    r"""One insert round replayed as a CUDA graph against the same round
+    dispatched op by op (``engine/graphs.py``), at the wide width (8,192
+    rows on the step's sorted plan) and the narrow one (2,048 compacted
+    rows on the per-row search), in this checkout.
+
+    The state is a t = 0.3 fit of 200,000 rows at the 1M settings, and the
+    round inserts the next batch.  Before each timed round the tables and
+    the step's buffers are restored from a copy (same addresses), so every
+    round does the same work; a round's wall runs from its dispatch to the
+    host read of the loop's condition, as in the step.  Median of ``reps``
+    per kind, taken in turns D R R D."""
+    BatchTree, engine, _ts = _use(tree_dir)
+    graphs = engine.graphs
+    m, narrow = 8192, 2048
+    tree, _ncl = _fit(BatchTree, dev_fps, 200_000)
+    state = tree.state
+    thr, tol = tree._scalars()
+    tables = engine._tables(state)
+
+    def stage(batch: int):
+        rows = engine._slice_prep_fp_rows_impl(dev_fps, 200_000 + batch * m, m, m, cs.N_FEATURES)
+        return engine._stage_step(
+            state, *rows, thr, tol, criterion="diameter", block=tree.route_block
         )
-        if front == "sorted":
-            plan = ts.sorted_search_plan(torch.where(pending, row_group, g - 1))
-            order, skey, extra = plan[0], plan[1], plan[2:]
-            srows, spops, plan_key = row_pk[order], row_pop[order], skey
-            calls[front] = (
-                lambda srows=srows, spops=spops, skey=skey, order=order, t=(t_pk, t_pops, t_slot),
-                pending=pending, extra=extra: ts.tile_search_planned(
-                    srows, spops, skey, order, *t, pending, *extra
-                )
-            )
-        else:
-            args = (row_pk, row_pop, torch.where(pending, row_group, g + 7), t_pk, t_pops, t_slot, pending)
-            calls[front] = lambda args=args: ts.tile_search_rows(*args)
 
-    def one_round(search):
-        y = x
-        for _ in range(30):
-            y = y * 1.0001 + 0.0001
-        out = search()
-        return float(y[0]) + (0.0 if out is None else float(out[0][0]))
+    bufs = stage(0)
+    programs = {
+        "wide": (("wide", "diameter"), functools.partial(engine._wide_round, criterion="diameter")),
+        "narrow": (
+            ("narrow", "diameter", narrow),
+            functools.partial(engine._narrow_round, criterion="diameter", narrow=narrow),
+        ),
+    }
+    out: dict = {}
+    for kind in ("wide", "narrow"):
+        if kind == "narrow":
+            # Run the wide rounds as the step does until <= 2,048 rows pend,
+            # on the next batches until one leaves some pending (a step
+            # whose wide rounds take every row runs no narrow round)
+            name, fn = programs["wide"]
+            for batch in range(1, 17):
+                bufs = stage(batch)
+                while int(engine._isum(bufs["pending"])) > narrow:
+                    engine._carry(bufs, graphs.run(name, fn, tables, bufs))
+                if int(engine._isum(bufs["pending"])) > 0:
+                    break
+            else:
+                raise AssertionError("no batch of 16 left rows for a narrow round")
+        saved = [t.clone() for t in tables], {k: v.clone() for k, v in bufs.items()}
+        name, fn = programs[kind]
 
-    walls = {}
-    for name, search in calls.items():
-        for _ in range(10):
-            one_round(search)
-        times = []
-        for _ in range(reps):
+        def restore():
+            for t, c in zip(tables, saved[0]):
+                t.copy_(c)
+            for k, v in saved[1].items():
+                bufs[k].copy_(v)
+            torch.cuda.synchronize()
+
+        def one(run):
+            restore()
             t0 = time.perf_counter()
-            one_round(search)
-            times.append(time.perf_counter() - t0)
-        walls[name] = float(np.median(times)) * 1e3
+            engine._carry(bufs, run())
+            left = int(engine._isum(bufs["pending"]))
+            return time.perf_counter() - t0, left
+
+        ways = {
+            "dispatched": lambda: fn(tables, bufs),
+            "replayed": lambda: graphs.run(name, fn, tables, bufs),
+        }
+        for _ in range(3):  # warm-up, capture, one replay
+            for way in ways.values():
+                one(way)
+        walls: dict = {"dispatched": [], "replayed": []}
+        lefts = set()
+        for i in range(reps):
+            for way in ("dispatched", "replayed", "replayed", "dispatched")[i % 2 * 2 :][:2]:
+                wall, left = one(ways[way])
+                walls[way].append(wall)
+                lefts.add(left)
+        if len(lefts) != 1:
+            raise AssertionError(f"the {kind} round left {sorted(lefts)} rows pending across runs")
+        pend0 = int(saved[1]["pending"].sum())
+        med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+        out[kind] = {"pending_in": pend0, "pending_out": lefts.pop(), **{f"{k}_ms": v for k, v in med.items()}}
+        cs.say(
+            f"ab rounds: {kind} round (M {bufs['row_n'].shape[0] if kind == 'wide' else narrow}, "
+            f"{pend0} rows pending in, {out[kind]['pending_out']} out): dispatched "
+            f"{med['dispatched']:.4f} ms, replayed {med['replayed']:.4f} ms "
+            f"({med['dispatched'] / med['replayed']:.2f}x; median of {reps} each, in turns)"
+        )
+        restore()
+    del tree, state, tables, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def _graphs_against_dispatch(dev_fps, order: str = "RDDRRDDR") -> dict:
+    r"""1M t = 0.3 fits of this checkout in turns: "R" as it runs (rounds
+    and split passes replayed as CUDA graphs), "D" with every program
+    dispatched op by op (``engine/graphs.py``'s ``run`` replaced by a direct
+    call for that fit).  Per fit: wall, clusters, host syncs, peak
+    allocated and reserved memory; counts must agree."""
+    BatchTree, engine, _ts = _use(ROOT)
+    graphs = engine.graphs
+    run = graphs.run
+    out: dict = {"R": [], "D": []}
+    for label in order:
+        if label == "D":
+            graphs.run = lambda name, fn, tables, bufs: fn(tables, bufs)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            syncs0 = engine.host_syncs
+            t0 = time.perf_counter()
+            tree, ncl = _fit(BatchTree, dev_fps, cs.N_FPS)
+            wall = time.perf_counter() - t0
+        finally:
+            graphs.run = run
+        r = {
+            "fit_s": wall, "clusters": ncl, "host_syncs": engine.host_syncs - syncs0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+        }
+        del tree
+        out[label].append(r)
+        cs.say(
+            f"ab graphs {'replayed' if label == 'R' else 'dispatched'}: fit {wall:.3f} s, "
+            f"{ncl} clusters, {r['host_syncs']} host syncs, peak {r['peak_gib']:.3f} GiB "
+            f"allocated, {r['reserved_gib']:.3f} GiB reserved"
+        )
+    if len({r["clusters"] for rs in out.values() for r in rs}) != 1:
+        raise AssertionError("replayed and dispatched fits gave other counts")
     cs.say(
-        f"ab rounds {label}: median round wall without a search {walls['none']:.4f} ms, "
-        f"with the sorted search {walls['sorted']:.4f} ms, with the per-row search "
-        f"{walls['rows']:.4f} ms (median of {reps})"
+        "ab graphs summary: fit medians replayed "
+        f"{np.median([r['fit_s'] for r in out['R']]):.3f} s, dispatched "
+        f"{np.median([r['fit_s'] for r in out['D']]):.3f} s"
     )
-    # Host time of one call behind 20 ms of device work: about 20 ms if the
-    # call waits for the device, far less if it only enqueues
-    cycles = int(20e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
-    behind = {}
-    probes = dict(calls)
-    if hasattr(ts, "plan_items"):
-        probes["plan"] = lambda: ts.plan_items(plan_key)
-    for name, search in probes.items():
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        t0 = time.perf_counter()
-        search()
-        behind[name] = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-    cs.say(
-        f"ab behind 20 ms of device work {label}: host ms of one call "
-        + ", ".join(f"{k} {v:.3f}" for k, v in behind.items())
-    )
-    return {"label": label, "round_ms": walls, "behind_ms": behind}
+    return out
 
 
 _TIMED_ENGINE = (
@@ -308,27 +382,33 @@ def _host_timed(label: str, tree_dir: str, dev_fps) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("other", help="directory holding the other checkout's bblean_tpu_torch/")
+    ap.add_argument("other", nargs="?", help="directory holding the other checkout's bblean_tpu_torch/")
     ap.add_argument("--order", default="ABBAABBA")
     ap.add_argument("--out", help="JSON file for every run's numbers")
     ap.add_argument("--profile", action="store_true", help="one profiled fit per checkout")
     ap.add_argument("--cprofile", action="store_true", help="one cProfile'd fit per checkout")
     ap.add_argument("--events", action="store_true", help="fits (ABBA) with events per launch")
-    ap.add_argument("--rounds", action="store_true", help="emulated rounds (ABBA) with each search")
+    ap.add_argument("--rounds", action="store_true", help="a replayed round against a dispatched one (this checkout)")
     ap.add_argument("--timers", action="store_true", help="fits (ABBA) with host timers")
+    ap.add_argument("--dispatch", action="store_true", help="fits of this checkout, replayed against dispatched")
     args = ap.parse_args()
     if set(args.order) - {"A", "B"}:
         raise SystemExit("--order takes the letters A and B")
-    trees = {"A": os.path.abspath(args.other), "B": ROOT}
-    cs.phase_device()
-    rounds = [_round_walls(label, trees[label]) for label in "ABBA"] if args.rounds else []
     fits = args.order or args.profile or args.cprofile or args.events or args.timers
+    if fits and args.other is None:
+        raise SystemExit("the other checkout's directory is needed unless only --rounds or --dispatch runs (--order '')")
+    trees = {"A": os.path.abspath(args.other or ROOT), "B": ROOT}
+    cs.phase_device()
     _use(ROOT)
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
 
-    fps = make_fake_fingerprints(cs.N_FPS if fits else 0, cs.N_FEATURES, seed=cs.SEED)
+    fps = make_fake_fingerprints(
+        cs.N_FPS if fits or args.rounds or args.dispatch else 0, cs.N_FEATURES, seed=cs.SEED
+    )
     dev_fps = torch.from_numpy(fps).to("cuda")
     queries = fps[:131_072]
+    rounds = _round_walls(ROOT, dev_fps) if args.rounds else {}
+    dispatch = _graphs_against_dispatch(dev_fps) if args.dispatch else {}
     for label in "AB" if fits else "":
         BatchTree, _engine, _ts = _use(trees[label])
         t0 = time.perf_counter()
@@ -377,7 +457,7 @@ def main() -> None:
         with open(args.out, "w") as f:
             json.dump({
                 "other": args.other, "order": args.order, "runs": runs,
-                "profiled": profiled, "host_profiled": host, "events": events, "rounds": rounds, "timers": timers,
+                "profiled": profiled, "host_profiled": host, "events": events, "rounds": rounds, "timers": timers, "dispatch": dispatch,
             }, f)
 
 

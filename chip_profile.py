@@ -12,8 +12,12 @@ tiles per launch, the sum of the launches' bounds (``chip_smoke._bound``:
 bytes over 3.35 TB/s or operations over 1,979 TOP/s) and
 launches x (time - bound), the time above the bound per fit.  The device's
 busy time in the profiled fit (every kernel and copy) and its share of the
-fit's wall are printed too.  ``--out`` writes the per-launch numbers to
-a JSON file.  Imports no JAX.
+fit's wall are printed too, and the idle share of each scan window on the
+device: a marker kernel is launched as each window is dispatched, and a
+window's period runs from its marker to the next.  Launches inside
+replayed CUDA graphs (``engine/graphs.py``) are recorded from the capture's
+inputs after each replay.  ``--out`` writes the per-launch and per-window
+numbers to a JSON file.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ def main() -> None:
     thr = args.threshold
     cs.phase_device()
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+    from bblean_tpu_torch.engine import batch as engine, graphs
     from bblean_tpu_torch.ops import tile_search as ts
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,18 +68,37 @@ def main() -> None:
 
     records = []
     launch = ts._launch
+    scan = engine._scan_fit_packed_impl
+
+    def record(front, shape, key, order, pending):
+        live = pending if order is None else pending[order]
+        g = shape[0]
+        grp = torch.where(key < 0, key + g, key).clamp(0, g - 1)
+        records.append((front, shape, torch.where(live, grp, -1)))
 
     def recording(rows, pops, key, order, items, t_pk, t_pops, t_slot, pending):
-        live = pending if order is None else pending[order]
-        g = t_pk.shape[0]
-        grp = torch.where(key < 0, key + g, key).clamp(0, g - 1)
-        records.append((
-            "sorted" if order is not None else "rows", tuple(t_pk.shape),
-            torch.where(live, grp, -1),
-        ))
+        note = ("sorted" if order is not None else "rows", tuple(t_pk.shape), key, order, pending)
+        if graphs.capturing is not None:
+            # A capture launches nothing: its replays are recorded
+            graphs.capturing.notes.setdefault("profile", []).append(note)
+        else:
+            record(*note)
         return launch(rows, pops, key, order, items, t_pk, t_pops, t_slot, pending)
 
+    def replayed(prog, stage):
+        # The noted key, order and pending are the step's buffers (not
+        # written by the replay) or the replay's own temporaries
+        if stage == "after":
+            for note in prog.notes.get("profile", ()):
+                record(*note)
+
+    def marked(*args, **kwargs):
+        torch.cuda._sleep(1)  # a marker kernel where the window reaches the device
+        return scan(*args, **kwargs)
+
     ts._launch = recording
+    engine._scan_fit_packed_impl = marked
+    graphs.observers.append(replayed)
     try:
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -82,6 +106,8 @@ def main() -> None:
         prof_wall = time.perf_counter() - t0
     finally:
         ts._launch = launch
+        engine._scan_fit_packed_impl = scan
+        graphs.observers.remove(replayed)
     if n_prof != n_plain:
         raise AssertionError(f"the profiled fit gave {n_prof} clusters, not {n_plain}")
 
@@ -90,6 +116,7 @@ def main() -> None:
         key=lambda e: e.time_range.start,
     )
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    windows = _window_shares(events)
     kern = [e for e in events if "tile_search_kernel" in e.name]
     if len(kern) != len(records):
         raise AssertionError(f"{len(kern)} kernels in the trace, {len(records)} launches recorded")
@@ -136,13 +163,43 @@ def main() -> None:
         f"({busy_ms / 1e3 / prof_wall:.3f} of the wall); tile-search kernels "
         f"{sum(r['ms'] for r in per_launch):.3f} ms of it"
     )
+    shares = [w["idle_share"] for w in windows]
+    last = windows[-1]
+    cs.say(
+        f"profile: {len(windows)} scan windows on the device (from one marker kernel to "
+        f"the next): idle share median {np.median(shares):.3f} (min {min(shares):.3f}, "
+        f"max {max(shares):.3f}); the last full window {last['period_ms']:.1f} ms, "
+        f"device busy {last['busy_ms']:.1f} ms, idle share {last['idle_share']:.3f}"
+    )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({
                 "threshold": thr, "wall_s": wall, "profiled_wall_s": prof_wall,
                 "busy_ms": busy_ms, "summary": summary, "launches": per_launch,
+                "windows": windows,
             }, f)
+
+
+def _window_shares(events) -> list[dict]:
+    r"""Per scan window on the device, between consecutive marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``, launched as each window is
+    dispatched): the period, the busy time of the device events that start
+    in it, and the idle share 1 - busy / period."""
+    marks = [e.time_range.start for e in events if "spin_kernel" in e.name]
+    if len(marks) < 2:
+        raise AssertionError(f"{len(marks)} window markers in the trace")
+    out = []
+    for a, b in zip(marks, marks[1:]):
+        busy = sum(
+            e.time_range.elapsed_us() for e in events
+            if a <= e.time_range.start < b and "spin_kernel" not in e.name
+        )
+        out.append({
+            "period_ms": (b - a) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (b - a),
+        })
+    return out
 
 
 if __name__ == "__main__":

@@ -53,7 +53,14 @@ as the phase ends:
    generic path, every molecule assigned once,
    sampled clusters meeting the diameter criterion in float64, and the
    cluster counts exactly the port's own (397,552 and 983,222; their
-   distance to the JAX engine's record is printed as information);
+   distance to the JAX engine's record is printed as information); each
+   fit's insert rounds and split passes run as CUDA graphs
+   (``engine/graphs.py``): its line prints the programs run dispatched at
+   their first use, captured and replayed, the host syncs and the peak
+   memory beside the peak before the rounds were graphed, and in the
+   t = 0.3 fit one sampled replay of a wide round and one of a narrow
+   round are held bit-equal (every output and table) to the same round
+   dispatched on a clone of the state;
 5. on the t = 0.3 tree of phase 4: ``predict_packed`` of 131,072 queries
    through the sorted kernel (batch 8192) and the per-row kernel (batch
    1000), identical and equal to a float64 Tanimoto against the packed
@@ -91,7 +98,9 @@ as the phase ends:
    both runs' labels identical; (c) 20,000 fingerprints on four CPU shards
    and four shards of the card give identical labels; (d) inside the merges
    of (b), sampled launches of both tile-search front ends are held
-   bit-equal to the plain version on the merge's own inputs; (e) the
+   bit-equal to the plain version on the merge's own inputs, launches
+   inside replayed graphs included (the capture notes the search's inputs
+   and outputs, a sampled replay's tile tables are copied before it); (e) the
    command line with ``--engine sharded`` on the 1M-row file.
    ``python3 chip_smoke.py --only sharded`` runs phases 1 and 8 alone;
 9. ``BitBirch`` and the command line's host commands, on 131,072 of the 1M
@@ -158,6 +167,7 @@ exits non-zero without a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -165,6 +175,7 @@ import sys
 import tempfile
 import time
 import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -1106,6 +1117,86 @@ class _RouteWork:
         self.route.best_group_sim = self.fns["twin"]
 
 
+class _ReplayTwin:
+    r"""While installed (an observer of ``engine/graphs.py``), holds one
+    sampled replay of each round program (the ``at``-th replay of a wide
+    and of a narrow round) bit-equal to the same round run dispatched on a
+    clone of the state: before the replay the program's tables and buffers
+    are cloned; after it the program's function runs on the clones and
+    every output and every table must equal the replay's.  The clone's
+    launches are a comparison's and are taken back from the counts; the
+    peak allocated before the clone is kept in ``peak`` and the peak is
+    reset after it, so the fit's own peak is ``max(peak, the peak after)``."""
+
+    def __init__(self, at: dict | None = None) -> None:
+        from bblean_tpu_torch.engine import batch as engine, graphs
+
+        self.engine, self.graphs = engine, graphs
+        self.at = at or {"wide": 5, "narrow": 2}
+        self.seen = dict.fromkeys(self.at, 0)
+        self.held: list[str] = []
+        self.peak = 0
+        self._clone = None
+
+    def __call__(self, prog, stage: str) -> None:
+        kind = prog.key[0][0]
+        if kind not in self.at:
+            return
+        if stage == "before":
+            self.seen[kind] += 1
+            if self.seen[kind] == self.at[kind]:
+                self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+                self._clone = (
+                    tuple(t.clone() for t in prog.tables()),
+                    self.graphs.Buffers((k, v.clone()) for k, v in prog.bufs.items()),
+                )
+            return
+        if self._clone is None:
+            return
+        tables, bufs = self._clone
+        self._clone = None
+        counters = [(m, n, getattr(m, n)) for m, n in self.graphs._counters]
+        out = prog.fn(tables, bufs)
+        for m, n, v in counters:
+            setattr(m, n, v)
+        torch.cuda.synchronize()
+        bad = [f"output {i}" for i, (a, b) in enumerate(zip(out, prog.outputs)) if not torch.equal(a, b)]
+        bad += [
+            name for name, a, b in zip(self.engine._TABLES, tables, prog.tables())
+            if not torch.equal(a, b)
+        ]
+        if bad or len(out) != len(prog.outputs):
+            raise AssertionError(
+                f"replay {self.seen[kind]} of a {kind} round differs from the same round "
+                f"dispatched on a clone of the state: {', '.join(bad)}"
+            )
+        rows = prog.key[0][2] if kind == "narrow" else prog.bufs["row_n"].shape[0]
+        self.held.append(f"{kind} (replay {self.seen[kind]}, {rows} rows)")
+        del tables, bufs, out
+        torch.cuda.reset_peak_memory_stats()
+
+    def __enter__(self):
+        self.graphs.observers.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.graphs.observers.remove(self)
+
+
+def _graph_counts() -> tuple[int, int, int]:
+    r"""Programs of ``engine/graphs.py`` so far: (run dispatched at their
+    first use, captured, replayed)."""
+    from bblean_tpu_torch.engine import graphs
+
+    return graphs.warmups, graphs.captures, graphs.replays
+
+
+# Peaks allocated before the rounds were graphed: the 1M fits (the t = 0.65
+# fit with the t = 0.3 tree kept, as here), and the eight-shard fit + merge
+# of phase 8 b (PERF.md §5)
+PEAK_BEFORE_GIB = {0.3: 4.65, 0.65: 9.05, "8 shards": 19.23}
+
+
 def phase_full_size() -> dict:
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
     from bblean_tpu_torch import BatchTree
@@ -1124,9 +1215,12 @@ def phase_full_size() -> dict:
         for thr in (0.3, 0.65):
             torch.cuda.reset_peak_memory_stats()
             syncs0 = engine.host_syncs
+            graphs0 = _graph_counts()
             _reset_counts()
             t0 = time.perf_counter()
-            with _RouteWork(plain) as work:
+            # The t = 0.3 fit also holds one replayed wide and narrow round
+            # to the same round dispatched on a clone of the state
+            with _RouteWork(plain) as work, _ReplayTwin() if thr == 0.3 else contextlib.nullcontext() as twin:
                 tree = BatchTree(
                     N_FEATURES, threshold=thr, batch_size=8192, device="cuda",
                     **FIT_SETTINGS[thr],
@@ -1141,6 +1235,8 @@ def phase_full_size() -> dict:
 
             n_generic = ts.generic_launches
             syncs = engine.host_syncs - syncs0
+            warm, cap, rep = (b - a for a, b in zip(graphs0, _graph_counts()))
+            peak = max(twin.peak if twin else 0, torch.cuda.max_memory_allocated()) / 2**30
             rel = (ncl - JAX_COUNTS[thr]) / JAX_COUNTS[thr]
             say(
                 f"phase 4 t={thr}: fit {wall:.2f} s, {N_FPS / wall:.0f} fps/s, "
@@ -1149,9 +1245,20 @@ def phase_full_size() -> dict:
                 f"kernel launches {n_sorted} sorted + {n_rows} per-row "
                 f"({n_generic} on the generic path) + {n_plan} plan + {n_route} route "
                 f"+ {n_twin} twin ({route_generic} generic), peak "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; "
+                f"{peak:.2f} GiB allocated (before graphed rounds {PEAK_BEFORE_GIB[thr]:.2f}), "
+                f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; "
                 f"{work.text('route')}, final groups {tree.num_groups}"
             )
+            say(
+                f"phase 4 t={thr}: programs (rounds and split passes): {warm} run dispatched "
+                f"at their first use, {cap} captured, {rep} replayed; {syncs} host syncs; "
+                f"peak {peak:.2f} GiB allocated"
+                + (f"; replayed rounds == dispatched on a clone: {', '.join(twin.held)}" if twin else "")
+            )
+            if rep <= 0 or cap > warm:
+                raise AssertionError(f"phase 4 t={thr}: {warm} warm-ups, {cap} captures, {rep} replays")
+            if twin and len(twin.held) != len(twin.at):
+                raise AssertionError(f"phase 4: only {twin.held} of the sampled replays were held")
             if n_sorted <= 0 or n_plan <= 0:
                 raise AssertionError("the fit never launched the sorted search or the plan kernel")
             if n_generic:
@@ -1487,18 +1594,26 @@ class _MergeSearchCheck:
     r"""While installed, holds sampled launches of both tile-search front
     ends, as the engine's step makes them, bit-equal to the plain version on
     the same inputs (the first three launches of each front end after
-    ``arm()`` and every 25th after).  The wrapper's own launch is the main
-    path's; the plain version runs beside it and launches no kernel."""
+    ``arm()`` and every 25th after).  A launch is either the dispatched one
+    of a program's warm-up or one inside a replayed graph
+    (``engine/graphs.py``): a capture launches nothing, so the wrapper notes
+    the search's inputs and outputs in the program instead, and before a
+    sampled replay the tile tables (which the round updates in place) are
+    copied, so that after it the plain version reads what the replay read.
+    The wrapper's own launch is the main path's; the plain version runs
+    beside it and launches no kernel."""
 
     def __init__(self, plain: "_PlainOnCuda") -> None:
-        from bblean_tpu_torch.engine import batch as engine
+        from bblean_tpu_torch.engine import batch as engine, graphs
 
-        self.engine, self.plain = engine, plain.plain
+        self.engine, self.graphs, self.plain = engine, graphs, plain.plain
         self.planned, self.rows = engine.tile_search_planned, engine.tile_search_rows
         self.armed = False
         self.seen = {"sorted": 0, "rows": 0}
         self.checked = {"sorted": 0, "rows": 0}
         self.work = {"sorted": [], "rows": []}
+        self.replayed = 0  # checked launches that ran inside a replay
+        self._due_notes: list = []
 
     def arm(self, on: bool) -> None:
         self.armed = on
@@ -1515,30 +1630,63 @@ class _MergeSearchCheck:
         b = _bound(row_group, pending, t_pk.shape)
         self.work[kind].append((b["pending"], b["tiles"], row_pk.shape[0]))
 
-    def _planned(self, srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items):
-        got = self.planned(srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items)
-        if self._due("sorted"):
+    def _hold_call(self, kind, got, args, tiles):
+        r"""``args``: (srows, spops, skey, order, pending) sorted, (row_pk,
+        row_pop, row_group, pending) per-row; ``tiles``: (t_pk, t_pops,
+        t_slot) as the launch read them."""
+        if kind == "sorted":
             # Undo the plan's sort: the plain version takes rows in place
+            srows, spops, skey, order, pending = args
             row_pk, row_pop = torch.empty_like(srows), torch.empty_like(spops)
             row_group = torch.empty_like(skey)
             row_pk[order], row_pop[order], row_group[order] = srows, spops, skey
-            self._hold("sorted", got, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
+            args = (row_pk, row_pop, row_group, pending)
+        self._hold(kind, got, *args[:3], *tiles, args[3])
+
+    def _call(self, kind, got, args, tiles):
+        capture = self.graphs.capturing
+        if capture is not None:
+            refs = tuple(weakref.ref(t) for t in tiles)  # the program must not pin its tables
+            capture.notes.setdefault(self, []).append((kind, got, args, refs))
+        elif self._due(kind):
+            self._hold_call(kind, got, args, tiles)
         return got
+
+    def _planned(self, srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items):
+        got = self.planned(srows, spops, skey, order, t_pk, t_pops, t_slot, pending, items)
+        return self._call("sorted", got, (srows, spops, skey, order, pending), (t_pk, t_pops, t_slot))
 
     def _rows(self, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending):
         got = self.rows(row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
-        if self._due("rows"):
-            self._hold("rows", got, row_pk, row_pop, row_group, t_pk, t_pops, t_slot, pending)
-        return got
+        return self._call("rows", got, (row_pk, row_pop, row_group, pending), (t_pk, t_pops, t_slot))
+
+    def _observe(self, prog, stage: str) -> None:
+        r"""A ``graphs`` observer: copies the tile tables before a sampled
+        replay, holds the replay's launches after it (the noted inputs that
+        are not tables are buffers the replay does not write, or its own
+        temporaries, which hold this replay's values until the next)."""
+        notes = prog.notes.get(self, ())
+        if stage == "before":
+            self._due_notes = [
+                (kind, got, args, tuple(r().clone() for r in refs))
+                for kind, got, args, refs in notes if self._due(kind)
+            ]
+            return
+        for kind, got, args, tiles in self._due_notes:
+            self._hold_call(kind, got, args, tiles)
+            self.replayed += 1
+        self._due_notes = []
 
     def __enter__(self):
         self.engine.tile_search_planned = self._planned
         self.engine.tile_search_rows = self._rows
+        self.graphs.observers.append(self._observe)
         return self
 
     def __exit__(self, *exc) -> None:
         self.engine.tile_search_planned = self.planned
         self.engine.tile_search_rows = self.rows
+        self.graphs.observers.remove(self._observe)
 
 
 def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
@@ -1687,7 +1835,8 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
                 f"{forest.growths} table "
                 f"growths, capacities {forest.capacity} slots / {forest.g_capacity} groups "
                 f"/ {forest.ls_capacity} pool rows, peak {r['fit_peak'] / 2**30:.2f} GiB "
-                f"in the fit, {r['peak'] / 2**30:.2f} GiB in all"
+                f"in the fit, {r['peak'] / 2**30:.2f} GiB in all (before graphed rounds: "
+                f"{PEAK_BEFORE_GIB['8 shards']:.2f} GiB at t = 0.3)"
             )
             for stats in forest.merge_stats:
                 per = stats["receivers"]
@@ -1714,7 +1863,8 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
             say(
                 f"phase 8 d: t={thr} run {run}: inside the merge {check.checked['sorted']} "
                 f"sorted and {check.checked['rows']} per-row launches == plain on the "
-                f"merge's inputs (pending rows, tiles, M of the first three: sorted "
+                f"merge's inputs, {check.replayed} of them inside replayed graphs "
+                f"(pending rows, tiles, M of the first three: sorted "
                 f"{check.work['sorted'][:3]}, per-row {check.work['rows'][:3]}); "
                 f"fit and merge: {work.text('route')}; merge: {work.text('twin')}"
             )

@@ -8,7 +8,10 @@ batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
 sharded engine's merge on shards of one card (and, where there are two, of
 two cards), ``BitBirch``'s global clustering with the k-means on the card,
-and the native host library's build.
+the native host library's build, and the batch step's CUDA graphs (a
+replayed round bit-equal to a dispatched one, a fit whose tables grow
+equal to the CPU's, and launch counts through replays equal to a
+dispatched fit's).
 
 Marked ``cuda``: each test skips unless a CUDA device is available.  This
 file imports no JAX, so that it also runs where JAX is not installed; on
@@ -16,6 +19,8 @@ the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -231,6 +236,126 @@ def test_cpu_and_cuda_fits_give_equal_labels(cuda) -> None:
         tree.fit_packed(fps, range(len(fps)))
         labels.append(tree.assignments())
     np.testing.assert_array_equal(labels[0], labels[1])
+
+
+# -- the batch step's rounds and split passes as CUDA graphs ---------------------
+
+
+def _graph_counts():
+    from bblean_tpu_torch.engine import graphs
+
+    return graphs.warmups, graphs.captures, graphs.replays
+
+
+def test_replayed_round_equals_dispatched_round(cuda) -> None:
+    r"""Wide and narrow rounds through the runner (warm-up, capture, then
+    replays) against the same rounds dispatched on a clone of the state
+    and of the step's buffers: every table and buffer equal, bit for bit,
+    after every round."""
+    from bblean_tpu_torch.engine import batch as engine, graphs
+
+    fps = make_fake_fingerprints(9192, seed=SEED)
+    tree = BatchTree(2048, threshold=0.3, batch_size=1024, device=cuda)
+    tree.fit_packed(fps[:8000], range(8000))
+    m, narrow = 1024, 256
+    valid = torch.ones(m, dtype=torch.bool, device=cuda)
+    valid[-7:] = False
+    rows = engine._prep_fp_rows(torch.from_numpy(fps[8000 : 8000 + m]).to(cuda), valid, 2048)
+    thr, tol = tree._scalars()
+    bufs = engine._stage_step(tree.state, *rows, thr, tol, criterion="diameter", block=tree.route_block)
+    tables = engine._tables(tree.state)
+    twin_tables = tuple(t.clone() for t in tables)
+    twin_bufs = graphs.Buffers((k, v.clone()) for k, v in bufs.items())
+    wide = ("wide", "diameter"), functools.partial(engine._wide_round, criterion="diameter")
+    compact = ("narrow", "diameter", narrow), functools.partial(
+        engine._narrow_round, criterion="diameter", narrow=narrow
+    )
+    before = _graph_counts()
+    for name, fn in [wide] * 3 + [compact] * 3:
+        engine._carry(bufs, graphs.run(name, fn, tables, bufs))
+        engine._carry(twin_bufs, fn(twin_tables, twin_bufs))
+        torch.cuda.synchronize()
+        for field, a, b in zip(engine._TABLES, tables, twin_tables):
+            assert torch.equal(a, b), (name, field)
+        for k in bufs:
+            assert torch.equal(bufs[k], twin_bufs[k]), (name, k)
+    assert _graph_counts()[2] - before[2] >= 4  # at least two replays of each
+
+
+def test_kernels_launch_on_the_capture_stream(cuda, monkeypatch) -> None:
+    r"""Inside a capture the tile-search wrapper's ctypes launch takes the
+    runner's side stream (torch's current stream there), in the default
+    global capture mode; every launch of the fit is on that stream or the
+    default one."""
+    from bblean_tpu_torch.engine import graphs
+
+    seen = []
+    launch = ts._launch
+
+    def recording(*args):
+        seen.append((torch.cuda.current_stream().cuda_stream, torch.cuda.is_current_stream_capturing()))
+        return launch(*args)
+
+    monkeypatch.setattr(ts, "_launch", recording)
+    fps = make_fake_fingerprints(5000, seed=SEED)
+    tree = BatchTree(2048, threshold=0.3, batch_size=512, device=cuda)
+    tree.fit_packed(fps, range(len(fps)))
+    side = graphs._streams[torch.device(cuda.type, torch.cuda.current_device())].cuda_stream
+    captured = [stream for stream, capturing in seen if capturing]
+    assert captured and set(captured) == {side}
+    assert {stream for stream, _c in seen} <= {side, torch.cuda.default_stream().cuda_stream}
+
+
+def test_fit_with_forced_growth_equals_cpu_labels(cuda) -> None:
+    r"""A fit in two parts with every table grown between them: the growth
+    gives the rounds new keys (captured again), and the labels stay the
+    CPU's."""
+    fps = make_fake_fingerprints(6000, seed=SEED)
+    labels, captures = [], []
+    for device in ("cpu", cuda):
+        before = _graph_counts()
+        tree = BatchTree(2048, threshold=0.3, batch_size=256, route_block=64,
+                         tile=64, fanout=48, device=device)
+        tree.fit_packed(fps[:3000], range(3000))
+        shapes = tree.state.n.shape[0], tree.state.g_ls.shape[0], tree.state.ls.shape[0]
+        tree._ensure_capacity(2 * max(shapes))
+        grown = tree.state.n.shape[0], tree.state.g_ls.shape[0], tree.state.ls.shape[0]
+        assert all(b > a for a, b in zip(shapes, grown)), (shapes, grown)
+        tree.fit_packed(fps[3000:], range(3000, 6000))
+        labels.append(tree.assignments())
+        captures.append(_graph_counts()[1] - before[1])
+    np.testing.assert_array_equal(labels[0], labels[1])
+    assert captures[1] > 3, captures  # the keys of the grown tables captured again
+
+
+def test_graphed_fit_counts_equal_dispatched_counts(cuda, monkeypatch) -> None:
+    r"""A fit through the runner launches (by the counters) exactly what
+    the same fit launches with every program dispatched, and gives the
+    same labels."""
+    from bblean_tpu_torch.engine import graphs
+    from bblean_tpu_torch.ops import route
+
+    fps = make_fake_fingerprints(20_000, seed=SEED)
+
+    def counts():
+        return (ts.launches, ts.row_launches, ts.plan_launches, ts.generic_launches,
+                route.route_launches, route.wgmma_launches)
+
+    out = []
+    for dispatched in (False, True):
+        with monkeypatch.context() as mp:
+            if dispatched:
+                mp.setattr(graphs, "run", lambda name, fn, tables, bufs: fn(tables, bufs))
+            before, g0 = counts(), _graph_counts()
+            tree = BatchTree(2048, threshold=0.3, batch_size=1024, device=cuda)
+            tree.fit_packed(fps, range(len(fps)))
+            labels = tree.assignments()
+            out.append((tuple(b - a for a, b in zip(before, counts())), labels))
+            if not dispatched:
+                assert _graph_counts()[2] > g0[2]
+    (graphed, labels_g), (plain, labels_d) = out
+    assert graphed == plain and graphed[0] > 0 and graphed[1] > 0
+    np.testing.assert_array_equal(labels_g, labels_d)
 
 
 def test_predict_aligned_and_unaligned_batches_agree(cuda) -> None:

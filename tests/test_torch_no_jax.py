@@ -24,6 +24,7 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import sys\n"
         "import bblean_tpu_torch, bblean_tpu_torch.engine.batch\n"
         "import bblean_tpu_torch.engine.state_io, bblean_tpu_torch._build\n"
+        "import bblean_tpu_torch.engine.graphs\n"
         "import bblean_tpu_torch.ops.tile_search, bblean_tpu_torch.fingerprints\n"
         "import bblean_tpu_torch.ops.route\n"
         "import bblean_tpu_torch._timer, bblean_tpu_torch._config\n"
