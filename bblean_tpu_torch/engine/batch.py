@@ -69,12 +69,13 @@ import torch
 
 from bblean_tpu_torch.engine import graphs
 from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
-from bblean_tpu_torch.ops.merges import merge_accept_batch
+from bblean_tpu_torch.ops.merges import merge_accept_batch, merge_accept_from_moments
+from bblean_tpu_torch.ops.prefix_commit import prefix_commit_moments
 from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
 )
-from bblean_tpu_torch.ops import route, tile_search
+from bblean_tpu_torch.ops import prefix_commit, route, tile_search
 from bblean_tpu_torch.ops.popcount import _popcount_u8
 from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
 from bblean_tpu_torch.ops.tile_search import (
@@ -105,6 +106,7 @@ graphs.count_launches(
 graphs.count_launches(
     route, "route_launches", "best_sim_launches", "wgmma_launches", "generic_launches"
 )
+graphs.count_launches(prefix_commit, "launches")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -365,6 +367,18 @@ def _segment_rank(grp: torch.Tensor, mask_sorted: torch.Tensor) -> torch.Tensor:
     return csum - inc - seg_start_csum[grp.long()]
 
 
+def _prefix_counts(
+    inc: torch.Tensor, row_n_s: torch.Tensor, cand_n_s: torch.Tensor, seg_start: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    r"""(merged, pre-merge, nominee) counts of each sorted row's merge test
+    in a prefix commit: its candidate's count plus the included rows'
+    counts before it in its segment, and its own where ``inc``."""
+    s_n = torch.where(inc, row_n_s, 0)
+    excl_n = _icumsum(s_n) - s_n
+    old_n = cand_n_s + (excl_n - excl_n[seg_start])
+    return old_n + s_n, old_n, s_n
+
+
 def _scatter_perm(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     r"""``out[order] = vals`` for a permutation ``order`` (a fresh tensor)."""
     out = torch.empty_like(vals)
@@ -425,13 +439,16 @@ def _insert_round(
     has_cand = best_sim > -1.5
     best_l = best.long()
 
-    # ---- 3. individual merge evaluation ----
+    # ---- 3. individual merge evaluation (ops/prefix_commit.py: every row
+    # its own segment, nothing before it) ----
     cand_ls = _cluster_ls_of(state, best_l, n_features)
     cand_n = state.n[best_l]
     cand_ref = state.ls_ref[best_l]
-    accept = merge_accept_batch(
-        criterion, threshold, cand_ls + row_ls, cand_n + row_n, cand_ls,
-        cand_n, row_n, tolerance=tolerance,
+    merged_n = cand_n + row_n
+    accept = merge_accept_from_moments(
+        criterion, threshold,
+        prefix_commit_moments(criterion, row_ls, cand_ls, merged_n, cand_n),
+        merged_n, cand_n, row_n, tolerance=tolerance,
     )
     # Rows that repeatedly pass the individual screen but lose the commit
     # prefix are demoted to the rejected path
@@ -441,50 +458,30 @@ def _insert_round(
     akey = torch.where(accept, best, _BIG)
     aorder, agrp, astart = _group_ids_by_key(akey)
     a_ok = accept[aorder]
-    row_ls_a = row_ls[aorder]
     row_n_a = row_n[aorder]
-    s_ls = torch.where(a_ok[:, None], row_ls_a, 0)
-    s_n = torch.where(a_ok, row_n_a, 0)
+    cand_n_s = cand_n[aorder]
     # Per-row index of its segment's first sorted position
     seg_start = torch.cummax(torch.where(astart, row_idx, 0), dim=0).values.long()
-    cum_ls = _icumsum(s_ls)
-    cum_n = _icumsum(s_n)
-    excl_ls = cum_ls - s_ls
-    excl_n = cum_n - s_n
-    pre_ls = excl_ls - excl_ls[seg_start]  # sum of earlier rows in the segment
-    pre_n = excl_n - excl_n[seg_start]
-    cand_ls_s = cand_ls[aorder]
-    cand_n_s = cand_n[aorder]
-    acc_pref = (
-        merge_accept_batch(
-            criterion, threshold, cand_ls_s + pre_ls + s_ls,
-            cand_n_s + pre_n + s_n, cand_ls_s + pre_ls, cand_n_s + pre_n,
-            s_n, tolerance=tolerance,
-        )
-        & a_ok
-    )
-    del cum_ls, excl_ls, pre_ls
 
+    def commit_pass(inc: torch.Tensor) -> torch.Tensor:
+        r"""Each included sorted row's merge test against its candidate plus
+        the included rows before it in its segment; the (M, F) prefix sums
+        stay inside ``prefix_commit_moments`` (one kernel on the card)."""
+        new_n, old_n, s_n = _prefix_counts(inc, row_n_a, cand_n_s, seg_start)
+        moments = prefix_commit_moments(
+            criterion, row_ls, cand_ls, new_n, old_n, order=aorder, mask=inc,
+            seg_start=seg_start,
+        )
+        return merge_accept_from_moments(
+            criterion, threshold, moments, new_n, old_n, s_n, tolerance=tolerance,
+        ) & inc
+
+    acc_pref = commit_pass(a_ok)
     # ---- pass 2: skip failed rows and re-validate (serial semantics: a
     # failed row adds no mass to later rows' tests); commit the longest
     # prefix of surviving rows whose every cumulative merge holds ----
     inc2 = acc_pref
-    s_ls2 = torch.where(inc2[:, None], row_ls_a, 0)
-    s_n2 = torch.where(inc2, row_n_a, 0)
-    excl_ls2 = _icumsum(s_ls2) - s_ls2
-    excl_n2 = _icumsum(s_n2) - s_n2
-    pre_ls2 = excl_ls2 - excl_ls2[seg_start]
-    pre_n2 = excl_n2 - excl_n2[seg_start]
-    del excl_ls2
-    acc2 = (
-        merge_accept_batch(
-            criterion, threshold, cand_ls_s + pre_ls2 + s_ls2,
-            cand_n_s + pre_n2 + s_n2, cand_ls_s + pre_ls2,
-            cand_n_s + pre_n2, s_n2, tolerance=tolerance,
-        )
-        & inc2
-    )
-    del pre_ls2, s_ls2
+    acc2 = commit_pass(inc2)
     acc2_i = acc2.to(_I32)
     inc2_i = inc2.to(_I32)
     acc2_cum = _icumsum(acc2_i)
@@ -649,10 +646,10 @@ def _insert_round(
     # pre-aggregated per candidate segment (one writer row each) ----
     agrp_l = agrp.long()
     seg_add_ls = _segment_sum(
-        torch.where(committed_sorted[:, None], row_ls_a, 0), agrp, m
+        torch.where(committed_sorted[:, None], row_ls[aorder], 0), agrp, m
     )[agrp_l]
     num_ls = state.num_ls + n_promo + _isum(create_pool_try & create_ok)
-    _drop_set_(state.ls, ref_promo_sorted, cand_ls_s + seg_add_ls, promo_sorted)
+    _drop_set_(state.ls, ref_promo_sorted, cand_ls[aorder] + seg_add_ls, promo_sorted)
     _drop_add_(state.ls, cand_ref_s, seg_add_ls, adder_sorted)
     _drop_set_(state.ls, ref_create, pool_created_ls, create_pool)
     del seg_add_ls, pool_created_ls

@@ -20,8 +20,13 @@ sorted search's in-call sort and plan included).  Cluster counts and
 predicted slots and sims must be equal across runs.  A warm-up fit of
 50,000 rows per checkout comes first.  ``--profile`` then fits once more
 per checkout under ``torch.profiler`` (CUDA activity) and prints each
-fit's wall and device busy time, and the kernels whose device time
-differs most between the two; ``--cprofile`` fits once more per checkout
+fit's wall and device busy time, the launches and device ms of
+``torch.cumsum``'s outer-dimension scan and of the prefix-commit kernel
+(with the sum of its calls' bounds from the rows each call's mask lets
+in, logged by ``chip_smoke._PrefixWork`` in one more fit, not profiled,
+so the log's small kernels stay out of the profile), its ten
+kernels of most device time, and the kernels whose device time differs
+most between the two; ``--cprofile`` fits once more per checkout
 under ``cProfile`` and prints the functions whose host time differs most;
 ``--events`` fits once more per checkout (ABBA) with CUDA events around
 each launch of the search and plan wrappers and prints their summed
@@ -38,6 +43,7 @@ host reads and the search wrappers.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import functools
 import json
@@ -116,19 +122,55 @@ def _profiled(label: str, tree_dir: str, dev_fps) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     BatchTree, _engine, _ts = _use(tree_dir)
+    try:
+        prefix = cs._PrefixWork(log=False)  # a checkout that has the prefix-commit kernel
+    except ImportError:
+        prefix = contextlib.nullcontext()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, prefix:
         tree, _ncl = _fit(BatchTree, dev_fps, cs.N_FPS)
     wall = time.perf_counter() - t0
     del tree
     torch.cuda.empty_cache()
     per: dict[str, float] = {}
+    count: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
     busy = sum(per.values())
-    cs.say(f"ab profiled {label}: fit {wall:.3f} s wall, device busy {busy:.1f} ms")
-    return {"label": label, "wall_s": wall, "busy_ms": busy, "by_kernel_ms": per}
+
+    def kernels(*names):
+        keys = [k for k in per if any(n in k for n in names)]
+        return sum(count[k] for k in keys), sum(per[k] for k in keys)
+
+    scans, scan_ms = kernels("scan_outer_dim")
+    launches, prefix_ms = kernels(cs.PREFIX_KERNELS[2])[0], kernels(*cs.PREFIX_KERNELS)[1]
+    bound = 0.0
+    if launches:
+        with cs._PrefixWork() as logged:
+            tree, _ncl = _fit(BatchTree, dev_fps, cs.N_FPS)
+        del tree
+        torch.cuda.empty_cache()
+        if [n[:4] for n in logged.seen] != [n[:4] for n in prefix.seen]:
+            raise AssertionError("the logged fit's prefix-commit launches differ from the profiled fit's")
+        bound = logged.bound_ms()
+        cs.say(f"ab profiled {label} prefix-commit traffic: {logged.traffic_text()}")
+    cs.say(
+        f"ab profiled {label}: fit {wall:.3f} s wall, device busy {busy:.1f} ms; "
+        f"torch.cumsum outer-dimension scans {scans} launches, {scan_ms:.1f} ms; "
+        f"prefix-commit kernel {launches} launches, {prefix_ms:.1f} ms, bound {bound:.1f} ms, "
+        f"above bound {prefix_ms - bound:.1f} ms"
+    )
+    for k in sorted(per, key=lambda k: -per[k])[:10]:
+        cs.say(f"ab profiled {label} top kernel: {per[k]:.1f} ms, {count[k]} launches: {k[:160]}")
+    return {
+        "label": label, "wall_s": wall, "busy_ms": busy, "by_kernel_ms": per,
+        "launches": count, "prefix_commit": {
+            "launches": launches, "device_ms": prefix_ms, "bound_ms": bound,
+            "scan_outer_dim_launches": scans, "scan_outer_dim_ms": scan_ms,
+        },
+    }
 
 
 def _host_profiled(label: str, tree_dir: str, dev_fps) -> dict:

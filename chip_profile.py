@@ -1,4 +1,4 @@
-r"""Profile of the tile-search kernels inside one 1M-row fit on one NVIDIA GPU.
+r"""Profile of the hand kernels inside one 1M-row fit on one NVIDIA GPU.
 
 Run from the repository root:
 ``python3 chip_profile.py [--threshold 0.3] [--out PATH]``.
@@ -10,7 +10,16 @@ on the host and prints, per front end (sorted and per-row): launches, the
 kernel's device milliseconds per fit, the mean pending rows and distinct
 tiles per launch, the sum of the launches' bounds (``chip_smoke._bound``:
 bytes over 3.35 TB/s or operations over 1,979 TOP/s) and
-launches x (time - bound), the time above the bound per fit.  The device's
+launches x (time - bound), the time above the bound per fit; and for the
+prefix-commit kernel (``csrc/prefix_commit.cu``) its launches, device ms
+per fit, the sum of its calls' bounds (``chip_smoke._prefix_bound``, from
+the rows each call's mask lets in) and the time above it, beside the
+launches of ``torch.cumsum``'s outer-dimension scan (none since the kernel
+replaced it), and the traffic of its calls (the mask's share of the rows
+and the longest run, quartiles per call and width).  Those rows are logged
+on the card (``chip_smoke._PrefixWork``) in a third fit, not profiled, so
+the log's small kernels stay out of the profile; the fits are
+deterministic, and its launches must equal the profiled fit's.  The device's
 busy time in the profiled fit (every kernel and copy) and its share of the
 fit's wall are printed too, and the idle share of each scan window on the
 device: a marker kernel is launched as each window is dispatched, and a
@@ -101,7 +110,7 @@ def main() -> None:
     graphs.observers.append(replayed)
     try:
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, cs._PrefixWork(log=False) as prefix:
             n_prof = _fit(dev_fps, thr)
         prof_wall = time.perf_counter() - t0
     finally:
@@ -110,6 +119,10 @@ def main() -> None:
         graphs.observers.remove(replayed)
     if n_prof != n_plain:
         raise AssertionError(f"the profiled fit gave {n_prof} clusters, not {n_plain}")
+    with cs._PrefixWork() as logged:
+        n_logged = _fit(dev_fps, thr)
+    if n_logged != n_plain or [n[:4] for n in logged.seen] != [n[:4] for n in prefix.seen]:
+        raise AssertionError("the logged fit's prefix-commit launches differ from the profiled fit's")
 
     events = sorted(
         (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -158,6 +171,7 @@ def main() -> None:
             f"({s['bytes_bound_launches']} launches bound by bytes), launches x "
             f"(time - bound) = {s['above_bound_ms']:.3f} ms"
         )
+    summary["prefix-commit"] = _prefix_summary(events, logged)
     cs.say(
         f"profile: profiled fit {prof_wall:.3f} s wall, device busy {busy_ms:.3f} ms "
         f"({busy_ms / 1e3 / prof_wall:.3f} of the wall); tile-search kernels "
@@ -179,6 +193,36 @@ def main() -> None:
                 "busy_ms": busy_ms, "summary": summary, "launches": per_launch,
                 "windows": windows,
             }, f)
+
+
+def _prefix_summary(events, prefix) -> dict:
+    r"""The prefix-commit kernel in the profiled fit: its launches (one
+    ``moments_kernel`` a call), the device ms of its kernels, the sum of the
+    calls' bounds (``prefix``: the logged fit's launches) and the time above
+    it; and the launches of ``torch.cumsum``'s outer-dimension scan, which
+    it replaced."""
+    kern = [e for e in events if any(k in e.name for k in cs.PREFIX_KERNELS)]
+    launches = sum(cs.PREFIX_KERNELS[2] in e.name for e in kern)
+    if launches != len(prefix.seen):
+        raise AssertionError(f"{launches} prefix-commit launches in the trace, {len(prefix.seen)} recorded")
+    ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    bound = prefix.bound_ms()
+    scans = [e for e in events if "scan_outer_dim" in e.name]
+    out = {
+        "launches": launches, "device_ms": ms, "bound_ms": bound, "above_bound_ms": ms - bound,
+        "mean_ms": ms / max(launches, 1), "wide_launches": sum(s[0] == 8192 for s in prefix.seen),
+        "scan_outer_dim_launches": len(scans),
+        "scan_outer_dim_ms": sum(e.time_range.elapsed_us() for e in scans) / 1e3,
+        "traffic": prefix.traffic(),
+    }
+    cs.say(
+        f"profile prefix-commit: {launches} launches ({out['wide_launches']} at M = 8192), "
+        f"{ms:.3f} device ms per fit ({out['mean_ms']:.4f} ms a launch), bound {bound:.3f} ms, "
+        f"time above bound {out['above_bound_ms']:.3f} ms; torch.cumsum outer-dimension scans: "
+        f"{len(scans)} launches, {out['scan_outer_dim_ms']:.3f} ms"
+    )
+    cs.say(f"profile prefix-commit traffic: {prefix.traffic_text()}")
+    return out
 
 
 def _window_shares(events) -> list[dict]:

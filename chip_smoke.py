@@ -191,6 +191,9 @@ JAX_COUNTS = {0.3: 395_183, 0.65: 983_380}
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and dense int8
 # operations/s, for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM L2 (data sheet): a timing whose inputs fit in it reads them
+# from there, not from HBM
+L2_BYTES = 50 * 2**20
 INT8_OPS_PER_S = 1.979e15
 # Per timed case: the groups the rows are routed to and the share of rows
 # pending.  "fit" is the average launch of a profiled 1M fit at t = 0.3
@@ -225,6 +228,20 @@ NEAR_TIE_COLS = ((10, 20), (100, 3900))
 # them: the product and the ranges' combination
 ROUTE_KERNELS = ("route_wgmma_kernel", "route_combine_kernel")
 MERGE_Q = 16_384
+# Phase 2e: the layouts of one round's segments (``prefix_commit_case``)
+PREFIX_LAYOUTS = ("singletons", "one segment", "mixed", "t=0.3 runs", "none accepted")
+# Its merge thresholds: about the median cohesion of its cases' merges
+# (iSIM about 0.58, the radius complement about 0.73), so that both
+# outcomes occur; the tolerance is the engine's default
+PREFIX_THRESHOLD = {"radius": 0.73, "tolerance-radius": 0.73}
+PREFIX_DEFAULT_THRESHOLD = 0.58
+PREFIX_TOLERANCE = 0.05
+# Its shapes (the wide and the narrow rounds' rows at 2048 bits) and the
+# kernels of one call as the profiler names them: the chunks' tails, the
+# carry across chunks and the rescan with the moments (the screen, with no
+# segments, runs the last alone)
+PREFIX_SHAPES = ((8192, 2048), (2048, 2048))
+PREFIX_KERNELS = ("tails_kernel", "carry_kernel", "moments_kernel")
 MERGE_FIT = 755
 # Phase 7's sizes: centroids of the 1M tree that k-means clusters, its
 # clusters, and the rows and iterations of the t-SNE embedding
@@ -297,24 +314,27 @@ def phase_device() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     from bblean_tpu_torch import _build
-    from bblean_tpu_torch.ops import route, tile_search
+    from bblean_tpu_torch.ops import prefix_commit, route, tile_search
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    # One nvcc for each source, both started together
+    # One nvcc for each source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(m._lib) for m in (tile_search, route)]:
+    kernels = (tile_search, route, prefix_commit)
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for built in [pool.submit(m._lib) for m in kernels]:
             built.result()
     built = time.perf_counter() - t0
+    secs = ", ".join(
+        f"{src} {_build.build_seconds[src]:.2f} s"
+        for src in ("tile_search.cu", "route.cu", "prefix_commit.cu")
+    )
     say(
         f"phase 1 device: {name} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | kernel builds: tile_search.cu "
-        f"{_build.build_seconds['tile_search.cu']:.2f} s, route.cu "
-        f"{_build.build_seconds['route.cu']:.2f} s (both, loaded: {built:.2f} s)"
+        f"cuda {torch.version.cuda} | kernel builds: {secs} (all, loaded: {built:.2f} s)"
     )
     say(smi)
     return name
@@ -735,6 +755,64 @@ def route_near_tie_inputs(rng, m: int, f: int, g_cap: int, cols: tuple[int, int]
     return rows, rows.sum(1).astype(np.int32), cent, cent.sum(1).astype(np.int32), pending
 
 
+def prefix_commit_case(rng, m: int, f: int, layout: str, big: bool = False,
+                       vote_edge: bool = False):
+    r"""numpy inputs of one round's merge tests: the rows' sums (M, F) and
+    counts, each row's candidate's sums and count, the accept mask of the
+    screen and the candidate key (accepted rows that share a key form one
+    segment of the prefix commits).  Candidates are noisy members of a
+    prototype at 25% density (bits at 85% / 4%) with 1-39 members; a row is
+    one member with 0-50% noise.  ``layout`` is one of
+    ``PREFIX_LAYOUTS``: "singletons" (every key once), "one segment" (one
+    key), "mixed" (M / 8 keys), "t=0.3 runs" (keys drawn with weights
+    1 / rank^1.5: a few segments of hundreds to thousands of rows), "none
+    accepted"; the first two accept every row, the next two 75%.
+    ``big``: buffer rows and candidates of up to 2^17 members (sums past
+    2^16, Ksq past 2^31).  ``vote_edge``: 30% of the columns sit at the
+    majority vote's edge: at even rows the merged count is even and the
+    merged sums half of it, at odd rows the candidate's count is even and
+    its sums half of it; row 0 sums to 2^24 at a merged count of 2^25 + 1
+    (the f32 vote says 1 where 2 x >= n would say 0); row 1's candidate is
+    empty (a merged count of 1: the 0/1 path)."""
+    k = m if layout == "singletons" else max(1, m // 8)
+    if layout == "singletons":
+        best = rng.permutation(m)
+    elif layout == "one segment":
+        best = np.zeros(m, np.int64)
+    elif layout == "t=0.3 runs":
+        w = 1.0 / np.arange(1, k + 1) ** 1.5
+        best = rng.choice(k, m, p=w / w.sum())
+    else:
+        best = rng.integers(0, k, m)
+    if layout in ("mixed", "t=0.3 runs"):
+        accept = rng.random(m) < 0.75
+    else:
+        accept = np.full(m, layout != "none accepted")
+    hi = 1 << 17 if big else 40
+    q = np.where(rng.random((k, f)) < 0.25, 0.85, 0.04)
+    clus_n = rng.integers(1, hi, k)
+    clus_ls = rng.binomial(clus_n[:, None], q)
+    row_n = rng.integers(1, hi, m) if big else np.ones(m, np.int64)
+    noise = rng.random(m)[:, None] * 0.5
+    row_ls = rng.binomial(row_n[:, None], q[best] * (1 - noise) + 0.25 * noise)
+    cand_ls, cand_n = clus_ls[best], clus_n[best]
+    if vote_edge:
+        cols = rng.random((m, f)) < 0.3
+        even = (np.arange(m) % 2 == 0)[:, None]
+        cand_n = np.where(even[:, 0], cand_n | 1, np.maximum(cand_n & ~1, 2))
+        half = np.where(even, (cand_n[:, None] + row_n[:, None]) // 2 - row_ls, cand_n[:, None] // 2)
+        cand_ls = np.where(cols, half, np.minimum(cand_ls, cand_n[:, None]))
+        cand_n[0] = 1 << 25
+        cand_ls[0] = np.where(cols[0], (1 << 24) - row_ls[0], cand_ls[0])
+        cand_n[1] = 0
+        cand_ls[1] = 0
+    i32 = np.int32
+    return (
+        row_ls.astype(i32), row_n.astype(i32), cand_ls.astype(i32), cand_n.astype(i32),
+        accept, best.astype(i32),
+    )
+
+
 def _route_bound(m: int, f: int, g_num: int) -> dict:
     r"""The least time for one route (or twin) call: the rows, the live
     centroids, both popcount vectors and the pending flags read once and
@@ -854,8 +932,179 @@ def phase_route() -> dict:
     return out
 
 
+def prefix_commit_accept(args: tuple, nom_n: torch.Tensor, moments: torch.Tensor) -> torch.Tensor:
+    r"""The accept mask of one call of ``prefix_commit_moments`` (its
+    arguments ``args``) from its moments: the engine's tail, at phase 2e's
+    threshold for the criterion, masked by the call's rows."""
+    from bblean_tpu_torch.ops.merges import merge_accept_from_moments
+
+    criterion, new_n, old_n, mask = args[0], args[3], args[4], args[6]
+    threshold = PREFIX_THRESHOLD.get(criterion, PREFIX_DEFAULT_THRESHOLD)
+    acc = merge_accept_from_moments(
+        criterion, threshold, moments, new_n, old_n, nom_n, tolerance=PREFIX_TOLERANCE,
+    )
+    return acc if mask is None else acc & mask
+
+
+def prefix_commit_uses(criterion: str, case: tuple, device) -> dict:
+    r"""The insert round's three calls of ``prefix_commit_moments`` on
+    ``case`` (``prefix_commit_case``'s arrays, moved to ``device``), made
+    as the engine makes them: "screen" (every row its own segment), "pass
+    1" (the accepted rows sorted by key, in segments) and "pass 2" (the
+    rows that pass 1 accepts, by the plain version and the tail).  Each is
+    (the call's arguments, its nominee counts)."""
+    from bblean_tpu_torch.engine import batch as engine
+    from bblean_tpu_torch.ops import prefix_commit as pc
+
+    row_ls, row_n, cand_ls, cand_n, accept, best = (torch.from_numpy(a).to(device) for a in case)
+    m = row_ls.shape[0]
+    uses = {
+        "screen": ((criterion, row_ls, cand_ls, cand_n + row_n, cand_n, None, None, None), row_n),
+    }
+    order, _grp, start = engine._group_ids_by_key(torch.where(accept, best, engine._BIG))
+    idx = torch.arange(m, dtype=torch.int32, device=row_ls.device)
+    seg = torch.cummax(torch.where(start, idx, 0), dim=0).values.long()
+    inc = accept[order]
+    for name in ("pass 1", "pass 2"):
+        new_n, old_n, s_n = engine._prefix_counts(inc, row_n[order], cand_n[order], seg)
+        args = (criterion, row_ls, cand_ls, new_n, old_n, order, inc, seg)
+        uses[name] = (args, s_n)
+        inc = prefix_commit_accept(args, s_n, pc.prefix_commit_moments_plain(*args))
+    return uses
+
+
+def _prefix_bound(m: int, f: int, n_mom: int, segments: bool, read: int) -> dict:
+    r"""The least time for one call: ``cand_ls`` read once, the ``read``
+    rows of ``row_ls`` that the mask lets in read once (the function needs
+    no other), the counts, the order, the mask and the segment starts read
+    once and the (moments, M) int64 result written once, over 3.35 TB/s.
+    The arithmetic (a few integer operations a column) is far below the
+    bytes."""
+    n_bytes = (m + read) * f * 4 + 2 * m * 4 + (m * (8 + 1 + 8) if segments else 0) + 8 * n_mom * m
+    return {
+        "work": f"M={m} ({read} in the mask) x F={f}, {n_mom} moments",
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def phase_prefix_commit() -> dict:
+    r"""Phase 2e: the prefix-commit kernel (``ops/prefix_commit.py``,
+    ``csrc/prefix_commit.cu``) bit-equal to its plain version, moments and
+    accept masks, for the round's three calls (screen, pass 1, pass 2) and
+    all six criteria: at M = 8192 and 2048 rows of 2048 bits in every layout
+    of ``PREFIX_LAYOUTS`` (long t = 0.3-like segments among them), with
+    buffer rows of sums past 2^16, and at the majority vote's edge; and at
+    100 bits (the scalar path), 2050 and 4100 bits (several column tiles
+    adding into the moments).  Timed on the t = 0.3-like layout with the
+    fit's criterion (diameter) at both widths: kernel ms (profiler, the
+    call's kernels summed), ms a call with dispatch (events), the plain
+    version's ms, the bound and the share, and ``torch.cumsum(dim=0,
+    dtype=int32)`` of one (M, F) int32 plane (the library yardstick: the
+    call each pass replaces twice), each over copies of its inputs taken
+    in turn (``_time_prefix``), so that the tables come from HBM at M =
+    2048 too.  One pass at M = 8192 must take less time a call than that
+    scan.  The kernels line's record is timed on a round of the fit
+    (phase 4), not on these made-up layouts."""
+    from bblean_tpu_torch.ops import prefix_commit as pc
+    from bblean_tpu_torch.ops.merges import DEVICE_MERGES, moment_count
+
+    rng = np.random.default_rng(29)
+    cases = [(shape, layout, {}) for shape in PREFIX_SHAPES for layout in PREFIX_LAYOUTS]
+    cases += [(shape, "mixed", {"big": True}) for shape in PREFIX_SHAPES]
+    cases += [(shape, "singletons", {"vote_edge": True}) for shape in PREFIX_SHAPES]
+    cases += [((1000, 100), "t=0.3 runs", {}), ((300, 2050), "mixed", {}), ((600, 4100), "one segment", {})]
+    timing = {}
+    for (m, f), layout, kw in cases:
+        case = prefix_commit_case(rng, m, f, layout, **kw)
+        _keys, sizes = np.unique(case[5][case[4]], return_counts=True)
+        what = (
+            f"M={m} F={f} {layout}{''.join(' ' + k for k in kw)} ({len(sizes)} segments, "
+            f"longest {sizes.max() if len(sizes) else 0})"
+        )
+        for criterion in DEVICE_MERGES:
+            for mode, (args, nom_n) in prefix_commit_uses(criterion, case, "cuda").items():
+                before = pc.launches
+                got = pc.prefix_commit_moments(*args)
+                ref = pc.prefix_commit_moments_plain(*args)
+                torch.cuda.synchronize()
+                where = f"phase 2e {what} {criterion} {mode}"
+                if pc.launches != before + (moment_count(criterion) > 0):
+                    raise AssertionError(f"{where}: launches {before} -> {pc.launches}")
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{where}: moments differ from the plain version's")
+                if not torch.equal(
+                    prefix_commit_accept(args, nom_n, got), prefix_commit_accept(args, nom_n, ref)
+                ):
+                    raise AssertionError(f"{where}: accept masks differ from the plain version's")
+        line = f"phase 2e prefix commits == plain: {what}, 6 criteria x screen, pass 1, pass 2"
+        if layout == "t=0.3 runs" and not kw and (m, f) in PREFIX_SHAPES:
+            for mode, (args, _nom_n) in prefix_commit_uses("diameter", case, "cuda").items():
+                t = timing[f"M={m} {mode}"] = _time_prefix(args)
+                line += f"\n  {mode}" + _prefix_timing_text(t)
+        say(line)
+    # A pass over the wide rounds' 8,192 rows
+    wide = timing[f"M={PREFIX_SHAPES[0][0]} pass 1"]
+    if wide["call_ms"] >= wide["library_ms"]:
+        raise AssertionError(
+            f"phase 2e: one pass takes {wide['call_ms']:.4f} ms a call, the scan it replaces "
+            f"{wide['library_ms']:.4f} ms"
+        )
+    return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
+
+
+def _rotation(args: tuple) -> list[tuple]:
+    r"""Copies of one call's arguments on the card, enough that their
+    tables (``row_ls`` and ``cand_ls``) take four times the L2 together:
+    a timed call that takes the next copy each time reads its tables from
+    HBM, as the bound assumes (2 copies at M = 8192, 7 at M = 2048)."""
+    n = max(2, -(-4 * L2_BYTES // (2 * args[1].numel() * 4)))
+    return [
+        tuple(a.to("cuda", copy=True) if isinstance(a, torch.Tensor) else a for a in args)
+        for _ in range(n)
+    ]
+
+
+def _time_prefix(args: tuple) -> dict:
+    r"""One call of the prefix commits timed (``_time_case``) over copies
+    of its arguments taken in turn (``_rotation``), beside the bound for
+    this call's mask and ``torch.cumsum(dim=0, dtype=int32)`` of one of
+    its (M, F) int32 planes (the library yardstick: the call each pass
+    replaces twice), also in turn."""
+    from bblean_tpu_torch.ops import prefix_commit as pc
+    from bblean_tpu_torch.ops.merges import moment_count
+
+    copies = _rotation(args)
+    turn = [0]
+
+    def take() -> tuple:
+        turn[0] += 1
+        return copies[turn[0] % len(copies)]
+
+    criterion, row_ls, mask, seg_start = args[0], args[1], args[6], args[7]
+    m, f = row_ls.shape
+    read = m if mask is None else int(mask.sum())
+    t = _time_case(
+        lambda: pc.prefix_commit_moments(*take()),
+        lambda: pc.prefix_commit_moments_plain(*take()),
+        _prefix_bound(m, f, moment_count(criterion), seg_start is not None, read),
+        name=PREFIX_KERNELS if seg_start is not None else PREFIX_KERNELS[2:],
+    )
+    t["library_ms"] = _median_ms(lambda: torch.cumsum(take()[1], 0, dtype=torch.int32))
+    t["copies"] = len(copies)
+    return t
+
+
+def _prefix_timing_text(t: dict) -> str:
+    m = t["work"].split()[0]
+    return _timing_text(t) + (
+        f"; torch.cumsum(dim=0) of one {m} int32 plane {t['library_ms']:.4f} ms (events, "
+        f"median of 15); each timed over {t['copies']} copies of its inputs in turn"
+    )
+
+
 def _reset_counts() -> None:
-    from bblean_tpu_torch.ops import route, tile_search as ts
+    from bblean_tpu_torch.ops import prefix_commit, route, tile_search as ts
 
     ts.launches = 0
     ts.row_launches = 0
@@ -865,6 +1114,7 @@ def _reset_counts() -> None:
     route.best_sim_launches = 0
     route.generic_launches = 0
     route.wgmma_launches = 0
+    prefix_commit.launches = 0
 
 
 def _counts() -> tuple[int, int, int]:
@@ -884,17 +1134,37 @@ def _route_counts() -> tuple[int, int, int, int]:
     )
 
 
+def _kernel_counts() -> tuple[int, int, int]:
+    r"""Launches of the route, its twin and the prefix-commit kernel."""
+    from bblean_tpu_torch.ops import prefix_commit, route
+
+    return route.route_launches, route.best_sim_launches, prefix_commit.launches
+
+
 # A phase's launches of every kernel of the kernels line
-LAUNCH_KEYS = ("sorted", "rows", "plan", "route", "twin")
+LAUNCH_KEYS = ("sorted", "rows", "plan", "route", "twin", "prefix-commit")
 
 
 def _add_launches(launches: dict) -> tuple[int, int, int]:
     r"""Add the counts since the last ``_reset_counts()`` to ``launches``;
     returns the route kernels' (route, twin, generic path)."""
-    route_counts = _route_counts()
-    for k, c in zip(LAUNCH_KEYS, _counts() + route_counts[:2]):
+    for k, c in zip(LAUNCH_KEYS, _counts() + _kernel_counts()):
         launches[k] += c
-    return route_counts[:3]
+    return _route_counts()[:3]
+
+
+def _check_prefix_launches(what: str, rounds: int | None = None) -> int:
+    r"""A run that inserts rows must launch the prefix-commit kernel, three
+    times an insert round where ``rounds`` counts them; returns its
+    launches since the last ``_reset_counts()``."""
+    from bblean_tpu_torch.ops import prefix_commit
+
+    n = prefix_commit.launches
+    if n <= 0 or (rounds is not None and n != 3 * rounds):
+        raise AssertionError(
+            f"{what}: {n} prefix-commit launches" + (f" for {rounds} insert rounds" if rounds else "")
+        )
+    return n
 
 
 def _check_route_launches(n: int, generic: int, what: str) -> None:
@@ -1011,13 +1281,14 @@ def _check_fit(tree, fps: np.ndarray, threshold: float) -> None:
 class _PlainOnCuda:
     r"""Counts calls of the plain versions on CUDA tensors (they must see
     none) while installed in place of ``tile_search.search_tiles_plain``,
-    through which both tile-search wrappers reach the plain search, and of
+    through which both tile-search wrappers reach the plain search, of
     ``route.route_groups_plain`` and ``route.best_group_sim_plain``, through
-    which the route's wrappers reach theirs.  ``self.plain`` and
+    which the route's wrappers reach theirs, and of
+    ``prefix_commit.prefix_commit_moments_plain``.  ``self.plain`` and
     ``self.route_plain`` are the uncounted originals."""
 
     def __init__(self) -> None:
-        from bblean_tpu_torch.ops import route, tile_search as ts
+        from bblean_tpu_torch.ops import prefix_commit, route, tile_search as ts
 
         self.ts, self.plain, self.calls = ts, ts.search_tiles_plain, 0
         self.route = route
@@ -1026,6 +1297,8 @@ class _PlainOnCuda:
             "best_group_sim_plain": route.best_group_sim_plain,
         }
         self.route_calls = dict.fromkeys(self.route_plain, 0)
+        self.prefix, self.prefix_plain = prefix_commit, prefix_commit.prefix_commit_moments_plain
+        self.prefix_calls = 0
 
     def __call__(self, row_pk, *args):
         self.calls += row_pk.device.type == "cuda"
@@ -1040,20 +1313,28 @@ class _PlainOnCuda:
 
         return call
 
+    def _prefix_counted(self, criterion, row_ls, *args):
+        self.prefix_calls += row_ls.device.type == "cuda"
+        return self.prefix_plain(criterion, row_ls, *args)
+
     def __enter__(self):
         self.ts.search_tiles_plain = self
         for name in self.route_plain:
             setattr(self.route, name, self._counted(name))
+        self.prefix.prefix_commit_moments_plain = self._prefix_counted
         return self
 
     def __exit__(self, *exc) -> None:
         self.ts.search_tiles_plain = self.plain
         for name, fn in self.route_plain.items():
             setattr(self.route, name, fn)
+        self.prefix.prefix_commit_moments_plain = self.prefix_plain
 
     def check(self, what: str) -> None:
         if self.calls:
             raise AssertionError(f"the plain search ran on CUDA tensors during {what}")
+        if self.prefix_calls:
+            raise AssertionError(f"the plain prefix commits ran on CUDA tensors during {what}")
         ran = [name for name, n in self.route_calls.items() if n]
         if ran:
             raise AssertionError(f"{' and '.join(ran)} ran on CUDA tensors during {what}")
@@ -1117,6 +1398,152 @@ class _RouteWork:
         self.route.best_group_sim = self.fns["twin"]
 
 
+# The ring of ``_PrefixWork``'s log on each card: (rows read, longest
+# run) of each launch, written by every program captured under a log for
+# as long as the program lives, so it is never freed
+_PREFIX_LOG: dict = {}
+PREFIX_LOG_CAP = 1 << 16
+
+
+class _PrefixWork:
+    r"""While installed, logs every launch of the prefix-commit kernel,
+    launches inside replayed CUDA graphs included.  On the host, each
+    launch's (M, F, moments, call, logged), the call being "screen", "pass
+    1" or "pass 2" in a round's order: a capture notes them in the program
+    (``graphs.capturing.notes``), each replay adds them to ``seen``.  With
+    ``log``, on the card too, by ops that a capture takes into its graph:
+    the rows the call's mask lets in (the rows of ``row_ls`` the kernel
+    must read) and its longest run (a segment's rows from its start to the
+    last of them in the mask), into ``_PREFIX_LOG``.  The log costs about
+    ten small kernels a launch, so a profiled fit runs without it.
+    :meth:`bound_ms` sums the calls' bounds (``_prefix_bound``, from the
+    logged rows), :meth:`traffic` gives their masks and runs.  While
+    ``sampling`` is set (a comparison's run, off the fit's counts), a call
+    is not logged; the first call of each (M, call) is copied to the host
+    into ``samples``."""
+
+    def __init__(self, log: bool = True) -> None:
+        from bblean_tpu_torch.engine import graphs
+        from bblean_tpu_torch.ops import prefix_commit as pc
+        from bblean_tpu_torch.ops.merges import moment_count
+
+        self.graphs, self.pc, self.launch = graphs, pc, pc._launch
+        self.moment_count = moment_count
+        self.log = log
+        self.seen: list[tuple[int, int, int, str, bool]] = []
+        self.samples: dict[tuple[int, str], tuple] = {}
+        self.sampling = False
+        self._pass = 1
+        self._start = 0
+        self._rows = None
+
+    def _log_rows(self, row_ls, mask, seg_start) -> None:
+        ring, cursor = _PREFIX_LOG[row_ls.device]
+        m = row_ls.shape[0]
+        dev = row_ls.device
+        if mask is None:
+            read = torch.full((), m, dtype=torch.int64, device=dev)
+        else:
+            read = mask.sum(dtype=torch.int64)
+        if seg_start is None:
+            run = torch.ones((), dtype=torch.int64, device=dev)
+        else:
+            run = torch.arange(1, m + 1, device=dev) - seg_start
+            run = (run if mask is None else torch.where(mask, run, 0)).max()
+        ring.index_copy_(0, cursor.remainder(PREFIX_LOG_CAP), torch.stack([read, run])[None])
+        cursor.add_(1)
+
+    def _record(self, criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start):
+        args = (cand_ls, new_n, old_n, order, mask, seg_start)
+        n_mom = self.moment_count(criterion)
+        if n_mom and row_ls.numel():
+            if seg_start is None:
+                call, self._pass = "screen", 1
+            else:
+                call, self._pass = f"pass {self._pass}", self._pass + 1
+            m, f = row_ls.shape
+            if self.sampling:
+                self.samples.setdefault((m, call), tuple(
+                    a.cpu() if isinstance(a, torch.Tensor) else a for a in (criterion, row_ls, *args)
+                ))
+            else:
+                if self.log:
+                    self._log_rows(row_ls, mask, seg_start)
+                note = (m, f, n_mom, call, self.log)
+                if self.graphs.capturing is not None:
+                    self.graphs.capturing.notes.setdefault("prefix", []).append(note)
+                else:
+                    self.seen.append(note)
+        return self.launch(criterion, row_ls, *args)
+
+    def _replayed(self, prog, stage: str) -> None:
+        if stage == "after":
+            self.seen.extend(prog.notes.get("prefix", ()))
+
+    def rows(self) -> np.ndarray:
+        r"""(launches, 2): each launch's rows read and longest run, in the
+        order of ``seen``."""
+        if self._rows is None:
+            if not all(note[4] for note in self.seen):
+                raise AssertionError("a prefix-commit launch ran in a program captured without the log")
+            torch.cuda.synchronize()
+            ring, cursor = _PREFIX_LOG[torch.device("cuda", torch.cuda.current_device())]
+            end = int(cursor.item())
+            if end - self._start != len(self.seen) or len(self.seen) > PREFIX_LOG_CAP:
+                raise AssertionError(
+                    f"{end - self._start} prefix-commit launches logged on the card, "
+                    f"{len(self.seen)} on the host"
+                )
+            self._rows = ring[torch.arange(self._start, end) % PREFIX_LOG_CAP].cpu().numpy()
+        return self._rows
+
+    def bound_ms(self) -> float:
+        return sum(
+            _prefix_bound(m, f, n_mom, call != "screen", int(read))["bound_ms"]
+            for (m, f, n_mom, call, _logged), (read, _run) in zip(self.seen, self.rows())
+        )
+
+    def traffic(self) -> dict:
+        r"""Per (M, call): launches, and the quartiles of the mask's share
+        of the rows and of the longest run."""
+        rows = self.rows()
+        out = {}
+        for key in sorted({(n[0], n[3]) for n in self.seen}, key=lambda k: (-k[0], k[1])):
+            pick = np.array([(n[0], n[3]) == key for n in self.seen])
+            q = (25, 50, 75)
+            out[f"M={key[0]} {key[1]}"] = {
+                "launches": int(pick.sum()),
+                "mask_share": [float(v) for v in np.percentile(rows[pick, 0] / key[0], q)],
+                "longest_run": [float(v) for v in np.percentile(rows[pick, 1], q)],
+            }
+        return out
+
+    def traffic_text(self) -> str:
+        return "; ".join(
+            f"{k}: {v['launches']} launches, mask share {'/'.join(f'{x:.3f}' for x in v['mask_share'])}, "
+            f"longest run {'/'.join(f'{x:.0f}' for x in v['longest_run'])} (quartiles)"
+            for k, v in self.traffic().items()
+        )
+
+    def __enter__(self):
+        if self.log:
+            dev = torch.device("cuda", torch.cuda.current_device())
+            if dev not in _PREFIX_LOG:
+                _PREFIX_LOG[dev] = (
+                    torch.zeros((PREFIX_LOG_CAP, 2), dtype=torch.int64, device=dev),
+                    torch.zeros((1,), dtype=torch.int64, device=dev),
+                )
+            torch.cuda.synchronize()
+            self._start = int(_PREFIX_LOG[dev][1].item())
+        self.pc._launch = self._record
+        self.graphs.observers.append(self._replayed)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.pc._launch = self.launch
+        self.graphs.observers.remove(self._replayed)
+
+
 class _ReplayTwin:
     r"""While installed (an observer of ``engine/graphs.py``), holds one
     sampled replay of each round program (the ``at``-th replay of a wide
@@ -1126,13 +1553,16 @@ class _ReplayTwin:
     every output and every table must equal the replay's.  The clone's
     launches are a comparison's and are taken back from the counts; the
     peak allocated before the clone is kept in ``peak`` and the peak is
-    reset after it, so the fit's own peak is ``max(peak, the peak after)``."""
+    reset after it, so the fit's own peak is ``max(peak, the peak after)``.
+    With ``prefix`` (a ``_PrefixWork``), the dispatched run samples the
+    round's prefix-commit calls into ``prefix.samples``."""
 
-    def __init__(self, at: dict | None = None) -> None:
+    def __init__(self, at: dict | None = None, prefix: "_PrefixWork | None" = None) -> None:
         from bblean_tpu_torch.engine import batch as engine, graphs
 
         self.engine, self.graphs = engine, graphs
         self.at = at or {"wide": 5, "narrow": 2}
+        self.prefix = prefix
         self.seen = dict.fromkeys(self.at, 0)
         self.held: list[str] = []
         self.peak = 0
@@ -1156,7 +1586,13 @@ class _ReplayTwin:
         tables, bufs = self._clone
         self._clone = None
         counters = [(m, n, getattr(m, n)) for m, n in self.graphs._counters]
-        out = prog.fn(tables, bufs)
+        if self.prefix is not None:
+            self.prefix.sampling = True
+        try:
+            out = prog.fn(tables, bufs)
+        finally:
+            if self.prefix is not None:
+                self.prefix.sampling = False
         for m, n, v in counters:
             setattr(m, n, v)
         torch.cuda.synchronize()
@@ -1183,6 +1619,28 @@ class _ReplayTwin:
         self.graphs.observers.remove(self)
 
 
+class _Rounds:
+    r"""While installed, counts the insert rounds a run executes: the calls
+    of ``graphs.run`` for a wide or a narrow round (each runs its round
+    once, dispatched at its key's first use or replayed after)."""
+
+    def __init__(self) -> None:
+        from bblean_tpu_torch.engine import graphs
+
+        self.graphs, self.run, self.n = graphs, graphs.run, 0
+
+    def _run(self, name, *args):
+        self.n += name[0] in ("wide", "narrow")
+        return self.run(name, *args)
+
+    def __enter__(self):
+        self.graphs.run = self._run
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.graphs.run = self.run
+
+
 def _graph_counts() -> tuple[int, int, int]:
     r"""Programs of ``engine/graphs.py`` so far: (run dispatched at their
     first use, captured, replayed)."""
@@ -1195,6 +1653,9 @@ def _graph_counts() -> tuple[int, int, int]:
 # fit with the t = 0.3 tree kept, as here), and the eight-shard fit + merge
 # of phase 8 b (PERF.md §5)
 PEAK_BEFORE_GIB = {0.3: 4.65, 0.65: 9.05, "8 shards": 19.23}
+# The replays of phase 4's t = 0.3 fit that ``_ReplayTwin`` holds to a
+# dispatched run: about the middle of its 145 wide and 204 narrow rounds
+REPLAY_AT = {"wide": 70, "narrow": 100}
 
 
 def phase_full_size() -> dict:
@@ -1211,6 +1672,7 @@ def phase_full_size() -> dict:
     launches = dict.fromkeys(LAUNCH_KEYS, 0)
     kept = None
     fit_walls = {}
+    prefix_samples = {}
     with _PlainOnCuda() as plain:
         for thr in (0.3, 0.65):
             torch.cuda.reset_peak_memory_stats()
@@ -1219,8 +1681,14 @@ def phase_full_size() -> dict:
             _reset_counts()
             t0 = time.perf_counter()
             # The t = 0.3 fit also holds one replayed wide and narrow round
-            # to the same round dispatched on a clone of the state
-            with _RouteWork(plain) as work, _ReplayTwin() if thr == 0.3 else contextlib.nullcontext() as twin:
+            # to the same round dispatched on a clone of the state, whose
+            # prefix-commit calls are sampled, and logs the traffic of its
+            # prefix commits
+            with (
+                _RouteWork(plain) as work, _Rounds() as rounds,
+                _PrefixWork() if thr == 0.3 else contextlib.nullcontext() as prefix,
+                _ReplayTwin(REPLAY_AT, prefix) if thr == 0.3 else contextlib.nullcontext() as twin,
+            ):
                 tree = BatchTree(
                     N_FEATURES, threshold=thr, batch_size=8192, device="cuda",
                     **FIT_SETTINGS[thr],
@@ -1231,6 +1699,7 @@ def phase_full_size() -> dict:
             wall = fit_walls[thr] = time.perf_counter() - t0
             n_sorted, n_rows, n_plan = _counts()
             n_route, n_twin, route_generic = _add_launches(launches)
+            n_prefix = _check_prefix_launches(f"phase 4 t={thr}", rounds.n)
             from bblean_tpu_torch.ops import tile_search as ts
 
             n_generic = ts.generic_launches
@@ -1244,7 +1713,8 @@ def phase_full_size() -> dict:
                 f"{JAX_COUNTS[thr]}, rel diff {rel:+.5%}), {syncs} host syncs, "
                 f"kernel launches {n_sorted} sorted + {n_rows} per-row "
                 f"({n_generic} on the generic path) + {n_plan} plan + {n_route} route "
-                f"+ {n_twin} twin ({route_generic} generic), peak "
+                f"+ {n_twin} twin ({route_generic} generic) + {n_prefix} prefix-commit "
+                f"(3 x {rounds.n} insert rounds), peak "
                 f"{peak:.2f} GiB allocated (before graphed rounds {PEAK_BEFORE_GIB[thr]:.2f}), "
                 f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; "
                 f"{work.text('route')}, final groups {tree.num_groups}"
@@ -1259,6 +1729,17 @@ def phase_full_size() -> dict:
                 raise AssertionError(f"phase 4 t={thr}: {warm} warm-ups, {cap} captures, {rep} replays")
             if twin and len(twin.held) != len(twin.at):
                 raise AssertionError(f"phase 4: only {twin.held} of the sampled replays were held")
+            if prefix:
+                if len(prefix.seen) != n_prefix:
+                    raise AssertionError(
+                        f"phase 4: {len(prefix.seen)} prefix-commit launches logged, {n_prefix} counted"
+                    )
+                say(
+                    f"phase 4 t={thr} prefix-commit traffic (logged on the card, every launch): "
+                    f"{prefix.traffic_text()}; bounds summed over the fit's launches "
+                    f"{prefix.bound_ms():.3f} ms"
+                )
+                prefix_samples = prefix.samples
             if n_sorted <= 0 or n_plan <= 0:
                 raise AssertionError("the fit never launched the sorted search or the plan kernel")
             if n_generic:
@@ -1291,7 +1772,36 @@ def phase_full_size() -> dict:
             k: launches[k] + phase5[k] + phase6[k] + phase8[k] + phase9[k]
             for k in launches
         },
+        "prefix_samples": prefix_samples,
     }
+
+
+def phase_prefix_fit(samples: dict) -> dict:
+    r"""The prefix-commit calls of one wide and one narrow round of phase
+    4's t = 0.3 fit (the rounds its ``_ReplayTwin`` ran again, about the
+    middle of the fit), held bit-equal to the plain version and timed as
+    in phase 2e (``_time_prefix``): the traffic of a real round."""
+    from bblean_tpu_torch.ops import prefix_commit as pc
+
+    want = {(m, call) for m in (8192, 2048) for call in ("screen", "pass 1", "pass 2")}
+    if set(samples) != want:
+        raise AssertionError(f"phase 4 sampled the prefix-commit calls {sorted(samples)}, not {sorted(want)}")
+    timing = {}
+    for (m, call), args in sorted(samples.items(), key=lambda kv: (-kv[0][0], kv[0][1])):
+        args = tuple(a.to("cuda") if isinstance(a, torch.Tensor) else a for a in args)
+        if not torch.equal(pc.prefix_commit_moments(*args), pc.prefix_commit_moments_plain(*args)):
+            raise AssertionError(f"phase 4 prefix commits, round of the fit M={m} {call}: kernel != plain")
+        t = timing[f"M={m} {call}"] = _time_prefix(args)
+        segs = ""
+        if args[7] is not None:
+            starts = args[7] == torch.arange(m, device="cuda")
+            segs = f", {int((starts & args[6]).sum())} segments with rows in the mask"
+        say(
+            f"phase 4 prefix commits == plain on a round of the t=0.3 fit, M={m} {call} "
+            f"({args[0]}{segs})" + _prefix_timing_text(t)
+        )
+    timing["fit"] = timing["M=8192 pass 1"]  # the kernels line's record
+    return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
 
 
 def _time_predict_searches(tree, queries: np.ndarray) -> dict:
@@ -1404,6 +1914,7 @@ def phase_predict_refine(tree, fps: np.ndarray, plain: _PlainOnCuda) -> tuple[di
     if n_sorted <= 0 or n_plan <= 0:
         raise AssertionError("the refine never launched the sorted search or the plan kernel")
     _check_route_launches(n_route, route_generic, "the refine")
+    _check_prefix_launches("the refine")
     labels, sizes = _check_assigned_once(tree)
     ls = tree.linear_sums()
     members_of = _members_by_cluster(labels, len(sizes))
@@ -1551,6 +2062,7 @@ def phase_cli(fps: np.ndarray, fit_walls: dict, plain: "_PlainOnCuda", tmp: Path
                 f"per-row + {n_plan} plan, {ts.generic_launches} generic"
             )
         _check_route_launches(n_route, route_generic, f"phase 6 {what}")
+        _check_prefix_launches(f"phase 6 {what}")
         plain.check(f"the command line ({what})")
         got = _check_run_dir(out_dir, fps, thr, what)
         t = got["timings"]
@@ -1706,7 +2218,7 @@ def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     fit_counts = _counts()
-    fit_route = _route_counts()[:2]
+    fit_route = _kernel_counts()
     fit_peak = torch.cuda.max_memory_allocated()
     if check is not None:
         check.arm(True)
@@ -1717,7 +2229,7 @@ def _sharded_run(dev_fps, mesh, threshold, check=None, **kw):
     if check is not None:
         check.arm(False)
     merge_counts = tuple(b - a for a, b in zip(fit_counts, _counts()))
-    merge_route = tuple(b - a for a, b in zip(fit_route, _route_counts()[:2]))
+    merge_route = tuple(b - a for a, b in zip(fit_route, _kernel_counts()))
     if ts.generic_launches or _route_counts()[2]:
         raise AssertionError(
             f"the sharded run took the generic path {ts.generic_launches} times "
@@ -1805,7 +2317,7 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
         f"{_launch_text(r['fit_launches'] + r['fit_route'])} (0 generic), {forest.growths} table growths, "
         f"peak {r['peak'] / 2**30:.2f} GiB allocated"
     )
-    if min(r["fit_launches"]) <= 0:
+    if min(r["fit_launches"]) <= 0 or r["fit_route"][2] <= 0:
         raise AssertionError("the one-shard fit did not launch every kernel")
     _check_route_launches(r["fit_route"][0], 0, "phase 8 a: the one-shard fit")
     _held_count("one", r["n_clusters"], "phase 8 a")
@@ -1847,7 +2359,7 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
                     f"{sum(s['rows'] for s in per.values())} ({len(per)} receivers), "
                     f"{stats['retries']} retries, {stats['growths']} growths"
                 )
-            if min(r["fit_launches"]) <= 0:
+            if min(r["fit_launches"]) <= 0 or r["fit_route"][2] <= 0:
                 raise AssertionError("the eight-shard fit did not launch every kernel")
             _check_route_launches(r["fit_route"][0], 0, "phase 8 b: the eight-shard fit")
             _check_route_launches(r["merge_route"][1], 0, "phase 8 b: the merge's twin")
@@ -1856,8 +2368,13 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
             rows_in = sum(
                 s["rows"] for st in forest.merge_stats for s in st["receivers"].values()
             )
-            if rows_in and min(r["merge_launches"][0], r["merge_launches"][2], r["merge_route"][0]) <= 0:
-                raise AssertionError("the merge inserted rows and launched no sorted search or route")
+            if rows_in and min(
+                r["merge_launches"][0], r["merge_launches"][2], r["merge_route"][0],
+                r["merge_route"][2],
+            ) <= 0:
+                raise AssertionError(
+                    "the merge inserted rows and launched no sorted search, route or prefix commit"
+                )
             if rows_in and min(check.checked.values()) <= 0:
                 raise AssertionError(f"phase 8 d: checked {check.checked} launches in the merge")
             say(
@@ -1913,9 +2430,9 @@ def phase_sharded(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
             "--engine", "sharded", "--no-monitor-mem", "-V",
         ])
         wall = time.perf_counter() - t0
-        counts = _counts() + _route_counts()[:2]
+        counts = _counts() + _kernel_counts()
         add(counts)
-        if min(_counts()) <= 0 or ts.generic_launches:
+        if min(_counts()) <= 0 or counts[5] <= 0 or ts.generic_launches:
             raise AssertionError(
                 f"phase 8 e: kernel launches {_launch_text(counts)}, "
                 f"{ts.generic_launches} generic"
@@ -2075,6 +2592,7 @@ def phase_bitbirch(fps: np.ndarray, plain: "_PlainOnCuda") -> dict:
                 f"{ts.generic_launches} generic"
             )
         _check_route_launches(n_route, route_generic, f"phase 9 b t={thr}")
+        _check_prefix_launches(f"phase 9 b t={thr}")
         plain.check("phase 9 b")
         labels, sizes = _check_labels(tree.assignments(), tree.cluster_sizes(), BITBIRCH_ROWS)
         _check_cohesion(labels, sizes, rows, thr)
@@ -2579,6 +3097,7 @@ def phase_examples() -> dict:
             if min(_counts()) <= 0:
                 raise AssertionError("phase 11: BatchTree did not launch every kernel")
             _check_route_launches(n_route, route_generic, "phase 11: BatchTree")
+            _check_prefix_launches("phase 11: BatchTree")
         finally:
             for proc in started.values():  # a failed check stops the runs still going
                 proc.kill()
@@ -2618,12 +3137,14 @@ def _kernel_record(name, source, replaces, launches, phase, library_ms=None) -> 
 
 
 def _only_kernels() -> None:
-    r"""Phases 1, 2, 2b, 2c and 2d alone (no kernels line, no result line)."""
+    r"""Phases 1, 2, 2b, 2c, 2d and 2e alone (no kernels line, no result
+    line)."""
     phase_device()
     phase_kernel()
     phase_row_kernel()
     phase_plan()
     phase_route()
+    phase_prefix_commit()
 
 
 def _only_sharded() -> None:
@@ -2690,8 +3211,10 @@ def main() -> None:
     rows = phase_row_kernel()
     plan = phase_plan()
     routes = phase_route()
+    prefix = phase_prefix_commit()
     phase_cpu_vs_cuda()
     full = phase_full_size()
+    prefix_fit = phase_prefix_fit(full["prefix_samples"])
     with _PlainOnCuda() as plain:
         examples = phase_examples()
         plain.check("phase 11")
@@ -2719,6 +3242,11 @@ def main() -> None:
             "best_group_sim", "route.cu", "bblean_tpu/parallel/sharded.py:117",
             full["launches"]["twin"], routes["twin"],
             routes["twin"]["timing"]["fit"]["library_ms"],
+        ),
+        _kernel_record(
+            "prefix_commit", "prefix_commit.cu", "bblean_tpu/engine/batch.py:406",
+            full["launches"]["prefix-commit"], prefix_fit,
+            prefix_fit["timing"]["fit"]["library_ms"],
         ),
     ]}))
     say(json.dumps({"ok": True, "device": {

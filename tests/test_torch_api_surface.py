@@ -90,6 +90,11 @@ PORT_ONLY = {
         "engine/batch.py::_route_groups and the twin of "
         "parallel/sharded.py::_best_group_sim, XLA programs inside those modules"
     ),
+    "ops.prefix_commit": (
+        "wrapper of csrc/prefix_commit.cu and the plain version: the insert "
+        "round's prefix-commit scans and merge-test sums, which JAX fuses "
+        "inside the jitted step of engine/batch.py"
+    ),
 }
 
 

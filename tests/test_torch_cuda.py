@@ -2,7 +2,10 @@ r"""The port on a CUDA card: the tile-search kernels (sorted and per-row
 launch modes), the sort plan's item-table kernel and the route kernel
 (both epilogues: the route's first argmax and the merge's best sim; the
 TMA path and the generic one, near ties, the clamped last block, ragged
-rows and more work units than SMs) against their plain versions, CPU and CUDA fits giving the
+rows and more work units than SMs) and the prefix-commit kernel (the
+insert round's screen and two passes, all six criteria, every layout of
+segments, sums past 2^16, the vote's edge, several column tiles, inside a
+captured CUDA graph) against their plain versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
@@ -746,3 +749,101 @@ def test_route_tma_path_keeps_the_first_column_of_a_near_tie(cuda, cols) -> None
     tied = args[4].clone()
     tied[1::2] = False
     assert bool((idx[tied] == min(cols)).all())
+
+
+@functools.lru_cache(maxsize=4)
+def _prefix_case(m, f, layout, big=False, vote_edge=False):
+    import chip_smoke
+
+    rng = np.random.default_rng(m + f + len(layout))
+    return chip_smoke.prefix_commit_case(rng, m, f, layout, big=big, vote_edge=vote_edge)
+
+
+def _prefix_both(criterion, case, device) -> None:
+    r"""The round's three calls on ``case``: the kernel's moments and
+    accept masks equal the plain version's; one launch a call (none for
+    never-merge, which has no moments)."""
+    import chip_smoke
+    from bblean_tpu_torch.ops import prefix_commit as pc
+    from bblean_tpu_torch.ops.merges import moment_count
+
+    for mode, (args, nom_n) in chip_smoke.prefix_commit_uses(criterion, case, device).items():
+        before = pc.launches
+        got = pc.prefix_commit_moments(*args)
+        assert pc.launches == before + (moment_count(criterion) > 0)
+        ref = pc.prefix_commit_moments_plain(*args)
+        assert torch.equal(got, ref), mode
+        assert torch.equal(
+            chip_smoke.prefix_commit_accept(args, nom_n, got),
+            chip_smoke.prefix_commit_accept(args, nom_n, ref),
+        ), mode
+
+
+@pytest.mark.parametrize(
+    "criterion",
+    ["diameter", "radius", "tolerance-diameter", "tolerance-radius", "tolerance-legacy", "never-merge"],
+)
+@pytest.mark.parametrize("m,f,layout", [(8192, 2048, "t=0.3 runs"), (2048, 2048, "mixed")])
+def test_prefix_commit_kernel_matches_plain(cuda, m, f, layout, criterion) -> None:
+    r"""The wide and the narrow rounds' shapes: screen, pass 1 and pass 2
+    bit-equal to the plain version (moments and masks)."""
+    _prefix_both(criterion, _prefix_case(m, f, layout), cuda)
+
+
+@pytest.mark.parametrize(
+    "m,f,layout,kw",
+    [
+        (2048, 2048, "one segment", {}),  # one segment of every row
+        (2048, 2048, "none accepted", {}),
+        (2048, 2048, "mixed", {"big": True}),  # sums past 2^16, Ksq past 2^31
+        (512, 2048, "singletons", {"vote_edge": True}),
+        (1000, 100, "t=0.3 runs", {}),  # F % 4 != 0: scalar loads
+        (300, 2050, "mixed", {}),  # two column tiles adding into the moments
+        (600, 4100, "one segment", {}),  # three column tiles, a 4-column tail
+        (1, 2048, "singletons", {}),
+    ],
+)
+def test_prefix_commit_kernel_edges(cuda, m, f, layout, kw) -> None:
+    case = _prefix_case(m, f, layout, **kw)
+    for criterion in ("diameter", "tolerance-radius", "tolerance-legacy", "radius"):
+        _prefix_both(criterion, case, cuda)
+
+
+def test_prefix_commit_kernel_in_a_cuda_graph(cuda) -> None:
+    r"""Captured in a CUDA graph (as the engine's rounds are), a pass
+    replays to the plain version's moments, also after new sums are
+    copied into the captured inputs."""
+    import chip_smoke
+    from bblean_tpu_torch.ops import prefix_commit as pc
+
+    case = _prefix_case(2048, 2048, "t=0.3 runs")
+    args, _nom = chip_smoke.prefix_commit_uses("tolerance-radius", case, cuda)["pass 1"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pc.prefix_commit_moments(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pc.prefix_commit_moments(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, pc.prefix_commit_moments_plain(*args))
+        args[1].copy_(torch.roll(args[1], 1, dims=0))  # new row sums, same buffer
+
+
+def test_prefix_commit_wrapper_rejects_bad_inputs(cuda) -> None:
+    import chip_smoke
+    from bblean_tpu_torch.ops import prefix_commit as pc
+
+    args, _nom = chip_smoke.prefix_commit_uses("diameter", _prefix_case(64, 64, "mixed"), cuda)["pass 1"]
+    bad = {
+        1: args[1].to(torch.int64),  # row sums' dtype
+        2: args[2].t(),  # not contiguous
+        3: args[3].cpu(),  # another device
+        5: args[5][:-1],  # the order's length
+    }
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            pc.prefix_commit_moments(*args[:i], t, *args[i + 1:])
