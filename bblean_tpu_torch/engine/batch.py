@@ -445,14 +445,16 @@ def _insert_round(
     cand_n = state.n[best_l]
     cand_ref = state.ls_ref[best_l]
     merged_n = cand_n + row_n
+    # Rows that repeatedly pass the individual screen but lose the commit
+    # prefix are demoted to the rejected path; the screen's result is kept
+    # for these rows only, so the kernel reads no others
+    screened = pending & has_cand & (strikes < 2)
     accept = merge_accept_from_moments(
         criterion, threshold,
-        prefix_commit_moments(criterion, row_ls, cand_ls, merged_n, cand_n),
+        prefix_commit_moments(criterion, row_ls, cand_ls, merged_n, cand_n, need=screened),
         merged_n, cand_n, row_n, tolerance=tolerance,
     )
-    # Rows that repeatedly pass the individual screen but lose the commit
-    # prefix are demoted to the rejected path
-    accept = accept & pending & has_cand & (strikes < 2)
+    accept = accept & screened
 
     # ---- conflict resolution: serial prefix commits per candidate ----
     akey = torch.where(accept, best, _BIG)
@@ -466,11 +468,12 @@ def _insert_round(
     def commit_pass(inc: torch.Tensor) -> torch.Tensor:
         r"""Each included sorted row's merge test against its candidate plus
         the included rows before it in its segment; the (M, F) prefix sums
-        stay inside ``prefix_commit_moments`` (one kernel on the card)."""
+        stay inside ``prefix_commit_moments`` (one kernel on the card), and
+        only the included rows' results are kept (``need``)."""
         new_n, old_n, s_n = _prefix_counts(inc, row_n_a, cand_n_s, seg_start)
         moments = prefix_commit_moments(
             criterion, row_ls, cand_ls, new_n, old_n, order=aorder, mask=inc,
-            seg_start=seg_start,
+            seg_start=seg_start, need=inc,
         )
         return merge_accept_from_moments(
             criterion, threshold, moments, new_n, old_n, s_n, tolerance=tolerance,

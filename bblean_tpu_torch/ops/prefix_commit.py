@@ -9,7 +9,9 @@ restarted at each candidate's segment, and the iSIM sums that
 batch engine calls :func:`prefix_commit_moments` three times a round: the
 individual screen (no order, no mask, every row its own segment), pass 1
 and pass 2 of the prefix commits; ``ops/merges.py::merge_accept_from_moments``
-turns the moments into the accept mask.
+turns the moments into the accept mask.  Each call passes ``need``, the
+rows whose result the round keeps (the screen's candidates, each pass's
+mask), so the kernel reads nothing for the others.
 
 Contract.  For sorted row ``i``, ``r = order[i]`` (``i`` when ``order`` is
 None), ``s[i] = mask[i] ? row_ls[r] : 0`` (``row_ls[r]`` when ``mask`` is
@@ -22,16 +24,19 @@ int64 ``K = sum(x)``, ``Ksq = sum(x^2)``, for the radius criteria also the
 sums of ``x + c`` and its squares (``c`` the f32 majority vote of
 ``ops/isim.py::majority_centroid_from_sums`` at ``new_n``), and for the
 tolerance criteria the same of ``y`` (vote at ``old_n.clamp_min(2)``);
-shape (moments, M), in sorted order.  Integer sums are exact in any order,
-so the kernel's moments equal the plain version's bit for bit.
+shape (moments, M), in sorted order.  A row outside ``need`` (a (M,) bool
+in sorted order; None: every row) gets zeros.  Integer sums are exact in
+any order, so the kernel's moments equal the plain version's bit for bit.
 
 Dispatch: tensors on the CPU go to :func:`prefix_commit_moments_plain`
 (today's torch code: the gathers, the masks, ``torch.cumsum``, the int64
 sums); tensors on a CUDA device go to the hand-written kernel of
 ``csrc/prefix_commit.cu`` and anything it does not take raises.  There is
 no fallback from the kernel to the plain version.  ``launches`` counts the
-wrapper's calls that launched the kernel (one call: the chunks' tails, the
-carry across chunks and the rescan with the moments).
+wrapper's calls that launched the kernel: one launch a call, whose blocks
+take (chunk of sorted rows, column tile) items in order, carry the prefix
+across chunks by a decoupled look-back and stage each row slice they read
+in shared memory once.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def _lib() -> ctypes.CDLL:
 
         lib = load_kernel_library(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_prefix_commit.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.bb_prefix_commit.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.bb_prefix_commit.restype = i
         _kernel_lib = lib
     return _kernel_lib
@@ -80,6 +85,7 @@ def prefix_commit_moments_plain(
     order: torch.Tensor | None = None,  # (M,) int64 sorted -> row
     mask: torch.Tensor | None = None,  # (M,) bool, sorted order
     seg_start: torch.Tensor | None = None,  # (M,) int64 segment start per sorted row
+    need: torch.Tensor | None = None,  # (M,) bool, sorted order
 ) -> torch.Tensor:
     r"""The moments of the module's contract with torch ops."""
     if order is not None:
@@ -89,14 +95,23 @@ def prefix_commit_moments_plain(
     if seg_start is not None:
         excl = torch.cumsum(s_ls, dim=0, dtype=_I32) - s_ls
         old_ls = cand_ls + (excl - excl[seg_start])
-    return merge_moments(criterion, old_ls + s_ls, new_n, old_ls, old_n)
+    moments = merge_moments(criterion, old_ls + s_ls, new_n, old_ls, old_n)
+    return moments if need is None else torch.where(need, moments, 0)
 
 
-def _chunk_rows(m: int, n_sm: int) -> int:
-    r"""Sorted rows a chunk: about two chunks an SM, at most 32 (a chunk's
-    rows and partial moments then take at most 16 KiB of shared memory):
-    32 rows at M = 8192, 8 at M = 2048 on 132 SMs, 256 chunks either way."""
-    return min(32, max(1, -(-m // (2 * n_sm))))
+_TILE_COLS = 256  # columns of an item (csrc/prefix_commit.cu: kTileCols)
+_MAX_CHUNK_ROWS = 16
+_ITEMS_PER_SM = 4
+
+
+def _chunk_rows(m: int, f: int, n_sm: int) -> int:
+    r"""Sorted rows a chunk: at most 16 (a block's ring of two (chunk,
+    column tile) items then takes 64 KiB of shared memory, three blocks an
+    SM), fewer where the items would not give every SM four: 16 rows at
+    M = 8192 and at M = 2048 (4,096 and 1,024 items at F = 2048 on 132
+    SMs)."""
+    tiles = -(-f // _TILE_COLS)
+    return min(_MAX_CHUNK_ROWS, max(1, m * tiles // (_ITEMS_PER_SM * n_sm)))
 
 
 def _check(named: dict) -> None:
@@ -121,7 +136,9 @@ def _check(named: dict) -> None:
             raise ValueError(f"prefix-commit kernel: {name} must be contiguous")
 
 
-def _launch(criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start) -> torch.Tensor:
+def _launch(
+    criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start, need=None,
+) -> torch.Tensor:
     global launches
     if row_ls.dim() != 2:
         raise ValueError(f"prefix-commit kernel: row_ls must be 2-d, got {row_ls.dim()}-d")
@@ -135,36 +152,38 @@ def _launch(criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start) ->
             "order": (order, torch.int64, (m,)),
             "mask": (mask, torch.bool, (m,)),
             "seg_start": (seg_start, torch.int64, (m,)),
+            "need": (need, torch.bool, (m,)),
         },
     )
     n_mom = moment_count(criterion)
     dev = row_ls.device
     if n_mom == 0 or m == 0 or f == 0:  # nothing to sum: no launch
         return torch.zeros((n_mom, m), dtype=torch.int64, device=dev)
-    vec = f % 4 == 0 and row_ls.data_ptr() % 16 == 0 and cand_ls.data_ptr() % 16 == 0
+    bulk = f % 4 == 0 and row_ls.data_ptr() % 16 == 0 and cand_ls.data_ptr() % 16 == 0
     lib = _lib()
     with torch.cuda.device(dev):
         idx = dev.index if dev.index is not None else torch.cuda.current_device()
         if idx not in _sm_count:
             _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-        rows = _chunk_rows(m, _sm_count[idx])
+        rows = _chunk_rows(m, f, _sm_count[idx])
         chunks = -(-m // rows)
-        # Zeros: where F spans several column tiles, they add into it
+        # Zeros: rows outside need stay so, and where F spans several column
+        # tiles the tiles add into it
         out = torch.zeros((n_mom, m), dtype=torch.int64, device=dev)
-        tails = carry = starts = None
-        if seg_start is not None:  # scratch of the chunks' tails and carries
-            tails = torch.empty((chunks, f), dtype=_I32, device=dev)
-            carry = torch.empty((chunks, f), dtype=_I32, device=dev)
-            starts = torch.empty((chunks,), dtype=torch.uint8, device=dev)
+        # With segments: the ticket, then each chunk's flagged tail or
+        # prefix a column (the look-back's words), zeroed
+        status = None
+        if seg_start is not None:
+            status = torch.zeros((1 + chunks * f,), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [
             None if t is None else t.data_ptr()
-            for t in (order, mask, seg_start, tails, carry, starts)
+            for t in (order, mask, seg_start, need, status)
         ]
         err = lib.bb_prefix_commit(
-            row_ls.data_ptr(), cand_ls.data_ptr(), *ptrs[:3], new_n.data_ptr(),
-            old_n.data_ptr(), *ptrs[3:], out.data_ptr(),
-            m, f, rows, int(_radius(criterion)), int(_reads_old(criterion)), int(vec), stream,
+            row_ls.data_ptr(), cand_ls.data_ptr(), *ptrs[:4], new_n.data_ptr(),
+            old_n.data_ptr(), *ptrs[4:], out.data_ptr(),
+            m, f, rows, int(_radius(criterion)), int(_reads_old(criterion)), int(bulk), stream,
         )
     if err != 0:
         raise RuntimeError(f"prefix-commit kernel launch failed: CUDA error {err}")
@@ -181,16 +200,18 @@ def prefix_commit_moments(
     order: torch.Tensor | None = None,  # (M,) int64 sorted -> row
     mask: torch.Tensor | None = None,  # (M,) bool, sorted order
     seg_start: torch.Tensor | None = None,  # (M,) int64 segment start per sorted row
+    need: torch.Tensor | None = None,  # (M,) bool, sorted order
 ) -> torch.Tensor:
     r"""(moments, M) int64 moments of the merge tests of a segmented prefix
-    commit (the module's contract), in sorted order.
+    commit (the module's contract), in sorted order; zeros outside
+    ``need``.
 
     Replaces ``bblean_tpu/engine/batch.py:390`` and ``:406-470`` (the
     scans and the sums inside ``merge_accept_batch``).  On the card one
     call of ``bb_prefix_commit`` (``csrc/prefix_commit.cu``); on the CPU
     :func:`prefix_commit_moments_plain`.
     """
-    args = (criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start)
+    args = (criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start, need)
     if row_ls.device.type == "cpu":
         return prefix_commit_moments_plain(*args)
     return _launch(*args)

@@ -58,6 +58,8 @@ import torch
 import chip_smoke as cs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The prefix-commit kernels of a checkout of the earlier three-launch design
+_THREE_LAUNCH_KERNELS = ("tails_kernel", "carry_kernel", "moments_kernel")
 THRESHOLD = 0.3
 
 
@@ -145,8 +147,12 @@ def _profiled(label: str, tree_dir: str, dev_fps) -> dict:
         return sum(count[k] for k in keys), sum(per[k] for k in keys)
 
     scans, scan_ms = kernels("scan_outer_dim")
-    launches, prefix_ms = kernels(cs.PREFIX_KERNELS[2])[0], kernels(*cs.PREFIX_KERNELS)[1]
-    bound = 0.0
+    # One kernel a call; a checkout of the earlier design launched three a
+    # call (chunk tails, carry, rescan), counted by the last
+    launches, prefix_ms = kernels(*cs.PREFIX_KERNELS)
+    if not launches:
+        launches, prefix_ms = kernels("moments_kernel")[0], kernels(*_THREE_LAUNCH_KERNELS)[1]
+    bound = bound_full = 0.0
     if launches:
         with cs._PrefixWork() as logged:
             tree, _ncl = _fit(BatchTree, dev_fps, cs.N_FPS)
@@ -154,13 +160,14 @@ def _profiled(label: str, tree_dir: str, dev_fps) -> dict:
         torch.cuda.empty_cache()
         if [n[:4] for n in logged.seen] != [n[:4] for n in prefix.seen]:
             raise AssertionError("the logged fit's prefix-commit launches differ from the profiled fit's")
-        bound = logged.bound_ms()
+        bound, bound_full = logged.bound_ms(), logged.bound_ms(full=True)
         cs.say(f"ab profiled {label} prefix-commit traffic: {logged.traffic_text()}")
     cs.say(
         f"ab profiled {label}: fit {wall:.3f} s wall, device busy {busy:.1f} ms; "
         f"torch.cumsum outer-dimension scans {scans} launches, {scan_ms:.1f} ms; "
         f"prefix-commit kernel {launches} launches, {prefix_ms:.1f} ms, bound {bound:.1f} ms, "
-        f"above bound {prefix_ms - bound:.1f} ms"
+        f"above bound {prefix_ms - bound:.1f} ms (with cand_ls read whole: bound "
+        f"{bound_full:.1f} ms, above it {prefix_ms - bound_full:.1f} ms)"
     )
     for k in sorted(per, key=lambda k: -per[k])[:10]:
         cs.say(f"ab profiled {label} top kernel: {per[k]:.1f} ms, {count[k]} launches: {k[:160]}")
@@ -168,6 +175,7 @@ def _profiled(label: str, tree_dir: str, dev_fps) -> dict:
         "label": label, "wall_s": wall, "busy_ms": busy, "by_kernel_ms": per,
         "launches": count, "prefix_commit": {
             "launches": launches, "device_ms": prefix_ms, "bound_ms": bound,
+            "bound_full_ms": bound_full,
             "scan_outer_dim_launches": scans, "scan_outer_dim_ms": scan_ms,
         },
     }

@@ -13,10 +13,12 @@ bytes over 3.35 TB/s or operations over 1,979 TOP/s) and
 launches x (time - bound), the time above the bound per fit; and for the
 prefix-commit kernel (``csrc/prefix_commit.cu``) its launches, device ms
 per fit, the sum of its calls' bounds (``chip_smoke._prefix_bound``, from
-the rows each call's mask lets in) and the time above it, beside the
-launches of ``torch.cumsum``'s outer-dimension scan (none since the kernel
-replaced it), and the traffic of its calls (the mask's share of the rows
-and the longest run, quartiles per call and width).  Those rows are logged
+the rows each call needs, and with ``cand_ls`` charged whole) and the time
+above it, the same per call and width (screen, pass 1, pass 2 at 8,192 and
+2,048 rows), beside the launches of ``torch.cumsum``'s outer-dimension
+scan (none since the kernel replaced it), and the traffic of its calls
+(the shares of the rows in the mask and in ``need`` and the longest run,
+quartiles per call and width).  Those rows are logged
 on the card (``chip_smoke._PrefixWork``) in a third fit, not profiled, so
 the log's small kernels stay out of the profile; the fits are
 deterministic, and its launches must equal the profiled fit's.  The device's
@@ -196,31 +198,53 @@ def main() -> None:
 
 
 def _prefix_summary(events, prefix) -> dict:
-    r"""The prefix-commit kernel in the profiled fit: its launches (one
-    ``moments_kernel`` a call), the device ms of its kernels, the sum of the
-    calls' bounds (``prefix``: the logged fit's launches) and the time above
-    it; and the launches of ``torch.cumsum``'s outer-dimension scan, which
-    it replaced."""
+    r"""The prefix-commit kernel in the profiled fit: its launches (one a
+    call), their device ms, the sums of the calls' bounds (``prefix``: the
+    logged fit's launches, in the order they ran; the bound of the rows
+    each call needs and the one with ``cand_ls`` read whole) and the time
+    above them, in all and per (width, call); and the launches of
+    ``torch.cumsum``'s outer-dimension scan, which it replaced."""
     kern = [e for e in events if any(k in e.name for k in cs.PREFIX_KERNELS)]
-    launches = sum(cs.PREFIX_KERNELS[2] in e.name for e in kern)
+    launches = len(kern)
     if launches != len(prefix.seen):
         raise AssertionError(f"{launches} prefix-commit launches in the trace, {len(prefix.seen)} recorded")
     ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    bound = prefix.bound_ms()
+    bound, bound_full = prefix.bound_ms(), prefix.bound_ms(full=True)
     scans = [e for e in events if "scan_outer_dim" in e.name]
     out = {
         "launches": launches, "device_ms": ms, "bound_ms": bound, "above_bound_ms": ms - bound,
+        "bound_full_ms": bound_full, "above_bound_full_ms": ms - bound_full,
         "mean_ms": ms / max(launches, 1), "wide_launches": sum(s[0] == 8192 for s in prefix.seen),
         "scan_outer_dim_launches": len(scans),
         "scan_outer_dim_ms": sum(e.time_range.elapsed_us() for e in scans) / 1e3,
-        "traffic": prefix.traffic(),
+        "traffic": prefix.traffic(), "calls": {},
     }
+    rows = prefix.rows()
+    for key in sorted({(n[0], n[3]) for n in prefix.seen}, key=lambda k: (-k[0], k[1])):
+        pick = [i for i, n in enumerate(prefix.seen) if (n[0], n[3]) == key]
+        call_ms = sum(kern[i].time_range.elapsed_us() for i in pick) / 1e3
+        b = b_full = 0.0
+        for i in pick:
+            m, f, n_mom, call, _logged = prefix.seen[i]
+            in_mask, _run, needed, read = (int(v) for v in rows[i])
+            b += cs._prefix_bound(m, f, n_mom, call != "screen", read, needed)["bound_ms"]
+            b_full += cs._prefix_bound(m, f, n_mom, call != "screen", in_mask)["bound_ms"]
+        out["calls"][f"M={key[0]} {key[1]}"] = {
+            "launches": len(pick), "device_ms": call_ms, "mean_ms": call_ms / len(pick),
+            "bound_ms": b, "bound_full_ms": b_full,
+        }
     cs.say(
         f"profile prefix-commit: {launches} launches ({out['wide_launches']} at M = 8192), "
         f"{ms:.3f} device ms per fit ({out['mean_ms']:.4f} ms a launch), bound {bound:.3f} ms, "
-        f"time above bound {out['above_bound_ms']:.3f} ms; torch.cumsum outer-dimension scans: "
-        f"{len(scans)} launches, {out['scan_outer_dim_ms']:.3f} ms"
+        f"time above bound {out['above_bound_ms']:.3f} ms (with cand_ls read whole: bound "
+        f"{bound_full:.3f} ms, above it {out['above_bound_full_ms']:.3f} ms); torch.cumsum "
+        f"outer-dimension scans: {len(scans)} launches, {out['scan_outer_dim_ms']:.3f} ms"
     )
+    cs.say("profile prefix-commit per call: " + "; ".join(
+        f"{k}: {v['launches']} launches, {v['device_ms']:.3f} ms ({v['mean_ms']:.4f} a launch), "
+        f"bound {v['bound_ms']:.3f} ms ({v['bound_full_ms']:.3f} with cand_ls whole)"
+        for k, v in out["calls"].items()
+    ))
     cs.say(f"profile prefix-commit traffic: {prefix.traffic_text()}")
     return out
 

@@ -237,11 +237,20 @@ PREFIX_THRESHOLD = {"radius": 0.73, "tolerance-radius": 0.73}
 PREFIX_DEFAULT_THRESHOLD = 0.58
 PREFIX_TOLERANCE = 0.05
 # Its shapes (the wide and the narrow rounds' rows at 2048 bits) and the
-# kernels of one call as the profiler names them: the chunks' tails, the
-# carry across chunks and the rescan with the moments (the screen, with no
-# segments, runs the last alone)
+# kernel of one call as the profiler names it (one launch a call)
 PREFIX_SHAPES = ((8192, 2048), (2048, 2048))
-PREFIX_KERNELS = ("tails_kernel", "carry_kernel", "moments_kernel")
+PREFIX_KERNELS = ("prefix_commit_kernel",)
+# The look-back's stress cases (``prefix_lookback_case``), at a row count
+# that is not a multiple of the chunk (16 rows on the card), each launched
+# PREFIX_STRESS_LAUNCHES times and replayed PREFIX_STRESS_REPLAYS times from
+# a CUDA graph
+PREFIX_STRESS = (
+    "one segment", "chunk-aligned segments", "long stretches without need",
+    "zero stretches", "screen stretches",
+)
+PREFIX_STRESS_M = 8187
+PREFIX_STRESS_LAUNCHES = 50
+PREFIX_STRESS_REPLAYS = 20
 MERGE_FIT = 755
 # Phase 7's sizes: centroids of the 1M tree that k-means clusters, its
 # clusters, and the rows and iterations of the t-SNE embedding
@@ -409,9 +418,11 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
     its ranges' combination) takes the sum of their means, over the fewest
     records any of them kept.  CUPTI now and then loses an activity record
     of a kernel this short, so a trace that holds fewer than ``reps``
-    records of a name is taken again, up to three times; the last one
-    counts if it holds at least half of them.  A record too many, or a
-    trace without the kernel, is an error at once."""
+    records of a name is taken again, up to three times (once in a while
+    a trace holds none at all, so a trace without the kernel is taken
+    again too); the last one counts if it holds at least half of them.  A
+    record too many is an error at once, and so is no record in any of the
+    three traces (a wrong name)."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (name,) if isinstance(name, str) else tuple(name)
@@ -428,7 +439,7 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
         count = min(counts.values())
         if all(c == reps for c in counts.values()):
             break
-        if max(counts.values()) > reps or count == 0:
+        if max(counts.values()) > reps:
             raise AssertionError(f"the profiler saw {counts} launches, not {reps} of each")
         say(f"  profiler kept {counts} of {reps} records (attempt {attempt + 1})")
     if 2 * count < reps:
@@ -938,28 +949,45 @@ def prefix_commit_accept(args: tuple, nom_n: torch.Tensor, moments: torch.Tensor
     threshold for the criterion, masked by the call's rows."""
     from bblean_tpu_torch.ops.merges import merge_accept_from_moments
 
-    criterion, new_n, old_n, mask = args[0], args[3], args[4], args[6]
+    criterion, new_n, old_n, mask, need = args[0], args[3], args[4], args[6], args[8]
     threshold = PREFIX_THRESHOLD.get(criterion, PREFIX_DEFAULT_THRESHOLD)
     acc = merge_accept_from_moments(
         criterion, threshold, moments, new_n, old_n, nom_n, tolerance=PREFIX_TOLERANCE,
     )
-    return acc if mask is None else acc & mask
+    for keep in (mask, need):
+        acc = acc if keep is None else acc & keep
+    return acc
 
 
-def prefix_commit_uses(criterion: str, case: tuple, device) -> dict:
+def prefix_screened(accept: torch.Tensor) -> torch.Tensor:
+    r"""The rows whose screen result a round keeps (the engine's ``pending
+    & has_cand & (strikes < 2)``) for ``prefix_commit_case``'s screen: the
+    rows it accepts and two of every three others."""
+    idx = torch.arange(accept.shape[0], device=accept.device)
+    return accept | (idx % 3 != 0)
+
+
+def prefix_commit_uses(criterion: str, case: tuple, device, need: bool = False) -> dict:
     r"""The insert round's three calls of ``prefix_commit_moments`` on
     ``case`` (``prefix_commit_case``'s arrays, moved to ``device``), made
     as the engine makes them: "screen" (every row its own segment), "pass
     1" (the accepted rows sorted by key, in segments) and "pass 2" (the
-    rows that pass 1 accepts, by the plain version and the tail).  Each is
-    (the call's arguments, its nominee counts)."""
+    rows that pass 1 accepts, by the plain version and the tail).  With
+    ``need``, each call passes the rows whose result the round keeps, as
+    the engine does (the screen: ``prefix_screened``; a pass: its mask);
+    without, none (every row).  Each is (the call's arguments, its nominee
+    counts)."""
     from bblean_tpu_torch.engine import batch as engine
     from bblean_tpu_torch.ops import prefix_commit as pc
 
     row_ls, row_n, cand_ls, cand_n, accept, best = (torch.from_numpy(a).to(device) for a in case)
     m = row_ls.shape[0]
+    screened = prefix_screened(accept) if need else None
     uses = {
-        "screen": ((criterion, row_ls, cand_ls, cand_n + row_n, cand_n, None, None, None), row_n),
+        "screen": (
+            (criterion, row_ls, cand_ls, cand_n + row_n, cand_n, None, None, None, screened),
+            row_n,
+        ),
     }
     order, _grp, start = engine._group_ids_by_key(torch.where(accept, best, engine._BIG))
     idx = torch.arange(m, dtype=torch.int32, device=row_ls.device)
@@ -967,45 +995,115 @@ def prefix_commit_uses(criterion: str, case: tuple, device) -> dict:
     inc = accept[order]
     for name in ("pass 1", "pass 2"):
         new_n, old_n, s_n = engine._prefix_counts(inc, row_n[order], cand_n[order], seg)
-        args = (criterion, row_ls, cand_ls, new_n, old_n, order, inc, seg)
+        args = (criterion, row_ls, cand_ls, new_n, old_n, order, inc, seg, inc if need else None)
         uses[name] = (args, s_n)
         inc = prefix_commit_accept(args, s_n, pc.prefix_commit_moments_plain(*args))
     return uses
 
 
-def _prefix_bound(m: int, f: int, n_mom: int, segments: bool, read: int) -> dict:
-    r"""The least time for one call: ``cand_ls`` read once, the ``read``
-    rows of ``row_ls`` that the mask lets in read once (the function needs
-    no other), the counts, the order, the mask and the segment starts read
-    once and the (moments, M) int64 result written once, over 3.35 TB/s.
-    The arithmetic (a few integer operations a column) is far below the
+def prefix_lookback_case(rng, m: int, f: int, rows: int, kind: str) -> tuple:
+    r"""numpy arguments of one call of ``prefix_commit_moments``
+    (tolerance-radius: all eight moments) that stresses the look-back
+    across chunks of ``rows`` sorted rows (``ops/prefix_commit.py::
+    _chunk_rows``).  ``kind`` is one of ``PREFIX_STRESS``: "one segment"
+    (every row in one segment, in the mask and needed); "chunk-aligned
+    segments" (segments start exactly at chunk boundaries: at each of the
+    first third of the chunks and at every fifth after; 75% of the rows in
+    the mask, needed = mask); "long stretches without need" (one segment,
+    every row in the mask, needed only in chunks 0-3, 100 and the last
+    two); "zero stretches" (one segment; chunks 4 to the last three hold no
+    row in the mask or need, so the last chunks look back through zero
+    tails); "screen stretches" (no segments, no order, needed rows only in
+    chunks 0-3 and the last three).  Sums and counts as
+    ``prefix_commit_case``'s "mixed" layout, the order a permutation."""
+    row_ls, row_n, cand_ls, cand_n, _accept, _best = prefix_commit_case(rng, m, f, "mixed")
+    idx = np.arange(m)
+    chunk = idx // rows
+    last = chunk[-1]
+    order = rng.permutation(m).astype(np.int64)
+    mask = np.ones(m, bool)
+    seg = np.zeros(m, np.int64)
+    if kind == "one segment":
+        need = mask
+    elif kind == "chunk-aligned segments":
+        starts = (idx % rows == 0) & ((chunk < (last + 1) // 3) | (chunk % 5 == 0))
+        seg = np.maximum.accumulate(np.where(starts, idx, 0)).astype(np.int64)
+        mask = rng.random(m) < 0.75
+        need = mask
+    elif kind == "long stretches without need":
+        need = (chunk < 4) | (chunk == 100) | (chunk >= last - 1)
+    elif kind == "zero stretches":
+        mask = (chunk < 4) | (chunk >= last - 2)
+        need = mask
+    else:
+        order = mask = seg = None
+        need = (chunk < 4) | (chunk >= last - 2)
+    return (
+        "tolerance-radius", row_ls, cand_ls, (row_n + cand_n).astype(np.int32), cand_n,
+        order, mask, seg, need,
+    )
+
+
+def _prefix_bound(m: int, f: int, n_mom: int, segments: bool, read: int,
+                  needed: int | None = None) -> dict:
+    r"""The least time for one call: the ``read`` rows of ``row_ls`` that
+    the result depends on read once, ``cand_ls`` read once for the
+    ``needed`` rows (every row where the call passes no ``need``), the
+    counts, the order, the mask, the segment starts and ``need`` read once
+    and the (moments, M) int64 result written once, over 3.35 TB/s.  The
+    arithmetic (a few integer operations a column) is far below the
     bytes."""
-    n_bytes = (m + read) * f * 4 + 2 * m * 4 + (m * (8 + 1 + 8) if segments else 0) + 8 * n_mom * m
+    n_bytes = (
+        ((m if needed is None else needed) + read) * f * 4 + 2 * m * 4
+        + (m * (8 + 1 + 8) if segments else 0) + (0 if needed is None else m) + 8 * n_mom * m
+    )
+    work = f"M={m} ({read} of row_ls read"
+    work += ")" if needed is None else f", {needed} needed)"
     return {
-        "work": f"M={m} ({read} in the mask) x F={f}, {n_mom} moments",
+        "work": f"{work} x F={f}, {n_mom} moments",
         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
+
+
+def _prefix_reads(args: tuple) -> tuple[int, int, int]:
+    r"""One call's row counts for the bounds: the rows of ``row_ls`` its
+    mask lets in (every row without a mask), the rows of ``row_ls`` the
+    result depends on (with segments those; without, those in ``need``
+    too) and the needed rows (every row without ``need``)."""
+    row_ls, mask, seg_start, need = args[1], args[6], args[7], args[8]
+    m = row_ls.shape[0]
+    in_mask = m if mask is None else int(mask.sum())
+    needed = m if need is None else int(need.sum())
+    if seg_start is not None or need is None:
+        read = in_mask
+    else:
+        read = needed if mask is None else int((mask & need).sum())
+    return in_mask, read, needed
 
 
 def phase_prefix_commit() -> dict:
     r"""Phase 2e: the prefix-commit kernel (``ops/prefix_commit.py``,
     ``csrc/prefix_commit.cu``) bit-equal to its plain version, moments and
     accept masks, for the round's three calls (screen, pass 1, pass 2) and
-    all six criteria: at M = 8192 and 2048 rows of 2048 bits in every layout
-    of ``PREFIX_LAYOUTS`` (long t = 0.3-like segments among them), with
+    all six criteria, each without ``need`` and with it as the engine
+    passes it: at M = 8192 and 2048 rows of 2048 bits in every layout of
+    ``PREFIX_LAYOUTS`` (long t = 0.3-like segments among them), with
     buffer rows of sums past 2^16, and at the majority vote's edge; and at
-    100 bits (the scalar path), 2050 and 4100 bits (several column tiles
-    adding into the moments).  Timed on the t = 0.3-like layout with the
-    fit's criterion (diameter) at both widths: kernel ms (profiler, the
-    call's kernels summed), ms a call with dispatch (events), the plain
-    version's ms, the bound and the share, and ``torch.cumsum(dim=0,
+    100 bits (plain loads), 2050 and 4100 bits (several column tiles
+    adding into the moments).  Then the look-back's stress cases
+    (``prefix_lookback_case``) at 8,187 rows, each bit-equal on each of
+    ``PREFIX_STRESS_LAUNCHES`` launches and ``PREFIX_STRESS_REPLAYS``
+    replays of a CUDA graph.  Timed on the t = 0.3-like layout with the
+    fit's criterion (diameter) at both widths, with and without ``need``:
+    kernel ms (profiler), ms a call with dispatch (events), the plain
+    version's ms, both bounds (``_time_prefix``) and ``torch.cumsum(dim=0,
     dtype=int32)`` of one (M, F) int32 plane (the library yardstick: the
     call each pass replaces twice), each over copies of its inputs taken
-    in turn (``_time_prefix``), so that the tables come from HBM at M =
-    2048 too.  One pass at M = 8192 must take less time a call than that
-    scan.  The kernels line's record is timed on a round of the fit
-    (phase 4), not on these made-up layouts."""
+    in turn, so that the tables come from HBM at M = 2048 too.  One pass
+    at M = 8192 must take less time a call than that scan.  The kernels
+    line's record is timed on a round of the fit (phase 4), not on these
+    made-up layouts."""
     from bblean_tpu_torch.ops import prefix_commit as pc
     from bblean_tpu_torch.ops.merges import DEVICE_MERGES, moment_count
 
@@ -1023,26 +1121,34 @@ def phase_prefix_commit() -> dict:
             f"longest {sizes.max() if len(sizes) else 0})"
         )
         for criterion in DEVICE_MERGES:
-            for mode, (args, nom_n) in prefix_commit_uses(criterion, case, "cuda").items():
-                before = pc.launches
-                got = pc.prefix_commit_moments(*args)
-                ref = pc.prefix_commit_moments_plain(*args)
-                torch.cuda.synchronize()
-                where = f"phase 2e {what} {criterion} {mode}"
-                if pc.launches != before + (moment_count(criterion) > 0):
-                    raise AssertionError(f"{where}: launches {before} -> {pc.launches}")
-                if not torch.equal(got, ref):
-                    raise AssertionError(f"{where}: moments differ from the plain version's")
-                if not torch.equal(
-                    prefix_commit_accept(args, nom_n, got), prefix_commit_accept(args, nom_n, ref)
-                ):
-                    raise AssertionError(f"{where}: accept masks differ from the plain version's")
-        line = f"phase 2e prefix commits == plain: {what}, 6 criteria x screen, pass 1, pass 2"
+            for need in (False, True):
+                for mode, (args, nom_n) in prefix_commit_uses(criterion, case, "cuda", need).items():
+                    before = pc.launches
+                    got = pc.prefix_commit_moments(*args)
+                    ref = pc.prefix_commit_moments_plain(*args)
+                    torch.cuda.synchronize()
+                    where = f"phase 2e {what} {criterion} {mode}{' with need' if need else ''}"
+                    if pc.launches != before + (moment_count(criterion) > 0):
+                        raise AssertionError(f"{where}: launches {before} -> {pc.launches}")
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"{where}: moments differ from the plain version's")
+                    if not torch.equal(
+                        prefix_commit_accept(args, nom_n, got), prefix_commit_accept(args, nom_n, ref)
+                    ):
+                        raise AssertionError(f"{where}: accept masks differ from the plain version's")
+        line = (
+            f"phase 2e prefix commits == plain: {what}, 6 criteria x screen, pass 1, pass 2, "
+            f"without and with need"
+        )
         if layout == "t=0.3 runs" and not kw and (m, f) in PREFIX_SHAPES:
-            for mode, (args, _nom_n) in prefix_commit_uses("diameter", case, "cuda").items():
-                t = timing[f"M={m} {mode}"] = _time_prefix(args)
-                line += f"\n  {mode}" + _prefix_timing_text(t)
+            for need in (True, False):
+                for mode, (args, _nom_n) in prefix_commit_uses("diameter", case, "cuda", need).items():
+                    key = f"M={m} {mode}" + ("" if need else " without need")
+                    t = timing[key] = _time_prefix(args)
+                    line += f"\n  {mode}{'' if need else ' without need'}" + _prefix_timing_text(t)
         say(line)
+    for kind in PREFIX_STRESS:
+        say(f"phase 2e look-back stress == plain: {_prefix_stress(rng, kind)}")
     # A pass over the wide rounds' 8,192 rows
     wide = timing[f"M={PREFIX_SHAPES[0][0]} pass 1"]
     if wide["call_ms"] >= wide["library_ms"]:
@@ -1051,6 +1157,60 @@ def phase_prefix_commit() -> dict:
             f"{wide['library_ms']:.4f} ms"
         )
     return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
+
+
+def prefix_stress_args(rng, kind: str, device) -> tuple:
+    r"""``prefix_lookback_case`` at ``PREFIX_STRESS_M`` x 2048 bits with
+    the chunk the wrapper picks on ``device``'s card, on ``device``."""
+    from bblean_tpu_torch.ops import prefix_commit as pc
+
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = pc._chunk_rows(PREFIX_STRESS_M, N_FEATURES, n_sm)
+    case = prefix_lookback_case(rng, PREFIX_STRESS_M, N_FEATURES, rows, kind)
+    return tuple(torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a for a in case)
+
+
+def prefix_stress_check(args: tuple) -> None:
+    r"""The kernel bit-equal to the plain version on each of
+    ``PREFIX_STRESS_LAUNCHES`` launches of one call and each of
+    ``PREFIX_STRESS_REPLAYS`` replays of it captured in a CUDA graph (the
+    ticket and the look-back's words zeroed by a node of the graph)."""
+    from bblean_tpu_torch.ops import prefix_commit as pc
+
+    ref = pc.prefix_commit_moments_plain(*args)
+    for k in range(PREFIX_STRESS_LAUNCHES):
+        if not torch.equal(pc.prefix_commit_moments(*args), ref):
+            raise AssertionError(f"launch {k}: moments differ from the plain version's")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pc.prefix_commit_moments(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pc.prefix_commit_moments(*args)
+    for k in range(PREFIX_STRESS_REPLAYS):
+        out.fill_(-1)
+        graph.replay()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"graph replay {k}: moments differ from the plain version's")
+
+
+def _prefix_stress(rng, kind: str) -> str:
+    args = prefix_stress_args(rng, kind, "cuda")
+    try:
+        prefix_stress_check(args)
+    except AssertionError as e:
+        raise AssertionError(f"phase 2e look-back stress {kind}: {e}") from None
+    m, f = args[1].shape
+    in_mask, _read, needed = _prefix_reads(args)
+    segs = "no segments"
+    if args[7] is not None:
+        segs = f"{int((args[7] == torch.arange(m, device=args[7].device)).sum())} segments"
+    return (
+        f"{kind}: M={m} F={f}, {in_mask} rows in the mask, {needed} needed, {segs}; "
+        f"{PREFIX_STRESS_LAUNCHES} launches and {PREFIX_STRESS_REPLAYS} graph replays"
+    )
 
 
 def _rotation(args: tuple) -> list[tuple]:
@@ -1068,9 +1228,12 @@ def _rotation(args: tuple) -> list[tuple]:
 def _time_prefix(args: tuple) -> dict:
     r"""One call of the prefix commits timed (``_time_case``) over copies
     of its arguments taken in turn (``_rotation``), beside the bound for
-    this call's mask and ``torch.cumsum(dim=0, dtype=int32)`` of one of
-    its (M, F) int32 planes (the library yardstick: the call each pass
-    replaces twice), also in turn."""
+    this call's rows (``_prefix_bound``: ``cand_ls`` for the needed rows,
+    ``row_ls`` for the rows the result depends on) and the bound that
+    charges ``cand_ls`` whole and ``row_ls`` for the rows in the mask
+    (``bound_full_ms``, ``share_full``), and ``torch.cumsum(dim=0,
+    dtype=int32)`` of one of its (M, F) int32 planes (the library
+    yardstick: the call each pass replaces twice), also in turn."""
     from bblean_tpu_torch.ops import prefix_commit as pc
     from bblean_tpu_torch.ops.merges import moment_count
 
@@ -1081,15 +1244,18 @@ def _time_prefix(args: tuple) -> dict:
         turn[0] += 1
         return copies[turn[0] % len(copies)]
 
-    criterion, row_ls, mask, seg_start = args[0], args[1], args[6], args[7]
+    criterion, row_ls, seg_start, need = args[0], args[1], args[7], args[8]
     m, f = row_ls.shape
-    read = m if mask is None else int(mask.sum())
+    n_mom = moment_count(criterion)
+    in_mask, read, needed = _prefix_reads(args)
     t = _time_case(
         lambda: pc.prefix_commit_moments(*take()),
         lambda: pc.prefix_commit_moments_plain(*take()),
-        _prefix_bound(m, f, moment_count(criterion), seg_start is not None, read),
-        name=PREFIX_KERNELS if seg_start is not None else PREFIX_KERNELS[2:],
+        _prefix_bound(m, f, n_mom, seg_start is not None, read, None if need is None else needed),
+        name=PREFIX_KERNELS,
     )
+    t["bound_full_ms"] = _prefix_bound(m, f, n_mom, seg_start is not None, in_mask)["bound_ms"]
+    t["share_full"] = t["bound_full_ms"] / t["ms"]
     t["library_ms"] = _median_ms(lambda: torch.cumsum(take()[1], 0, dtype=torch.int32))
     t["copies"] = len(copies)
     return t
@@ -1098,8 +1264,10 @@ def _time_prefix(args: tuple) -> dict:
 def _prefix_timing_text(t: dict) -> str:
     m = t["work"].split()[0]
     return _timing_text(t) + (
-        f"; torch.cumsum(dim=0) of one {m} int32 plane {t['library_ms']:.4f} ms (events, "
-        f"median of 15); each timed over {t['copies']} copies of its inputs in turn"
+        f"; the bound with cand_ls read whole {t['bound_full_ms']:.4g} ms, share "
+        f"{t['share_full']:.3f}; torch.cumsum(dim=0) of one {m} int32 plane "
+        f"{t['library_ms']:.4f} ms (events, median of 15); each timed over {t['copies']} "
+        f"copies of its inputs in turn"
     )
 
 
@@ -1412,12 +1580,14 @@ class _PrefixWork:
     1" or "pass 2" in a round's order: a capture notes them in the program
     (``graphs.capturing.notes``), each replay adds them to ``seen``.  With
     ``log``, on the card too, by ops that a capture takes into its graph:
-    the rows the call's mask lets in (the rows of ``row_ls`` the kernel
-    must read) and its longest run (a segment's rows from its start to the
-    last of them in the mask), into ``_PREFIX_LOG``.  The log costs about
-    ten small kernels a launch, so a profiled fit runs without it.
-    :meth:`bound_ms` sums the calls' bounds (``_prefix_bound``, from the
-    logged rows), :meth:`traffic` gives their masks and runs.  While
+    the rows the call's mask lets in, its longest run (a segment's rows
+    from its start to the last of them in the mask), the rows in ``need``
+    and the rows of ``row_ls`` the result depends on (``_prefix_reads``),
+    into ``_PREFIX_LOG``.  The log costs about a dozen small kernels a
+    launch, so a profiled fit runs without it.  :meth:`bound_ms` sums the
+    calls' bounds (``_prefix_bound``, from the logged rows; ``full``: with
+    ``cand_ls`` charged whole and ``row_ls`` for the mask's rows),
+    :meth:`traffic` gives their masks, needed rows and runs.  While
     ``sampling`` is set (a comparison's run, off the fit's counts), a call
     is not logged; the first call of each (M, call) is copied to the host
     into ``samples``."""
@@ -1437,24 +1607,32 @@ class _PrefixWork:
         self._start = 0
         self._rows = None
 
-    def _log_rows(self, row_ls, mask, seg_start) -> None:
+    def _log_rows(self, row_ls, mask, seg_start, need) -> None:
         ring, cursor = _PREFIX_LOG[row_ls.device]
         m = row_ls.shape[0]
         dev = row_ls.device
-        if mask is None:
-            read = torch.full((), m, dtype=torch.int64, device=dev)
-        else:
-            read = mask.sum(dtype=torch.int64)
+
+        def count(rows):
+            if rows is None:
+                return torch.full((), m, dtype=torch.int64, device=dev)
+            return rows.sum(dtype=torch.int64)
+
+        in_mask, needed = count(mask), count(need)
+        read = in_mask
+        if seg_start is None and need is not None:
+            read = count(need if mask is None else mask & need)
         if seg_start is None:
             run = torch.ones((), dtype=torch.int64, device=dev)
         else:
             run = torch.arange(1, m + 1, device=dev) - seg_start
             run = (run if mask is None else torch.where(mask, run, 0)).max()
-        ring.index_copy_(0, cursor.remainder(PREFIX_LOG_CAP), torch.stack([read, run])[None])
+        row = torch.stack([in_mask, run, needed, read])[None]
+        ring.index_copy_(0, cursor.remainder(PREFIX_LOG_CAP), row)
         cursor.add_(1)
 
-    def _record(self, criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start):
-        args = (cand_ls, new_n, old_n, order, mask, seg_start)
+    def _record(self, criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start,
+                need=None):
+        args = (criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start, need)
         n_mom = self.moment_count(criterion)
         if n_mom and row_ls.numel():
             if seg_start is None:
@@ -1464,25 +1642,27 @@ class _PrefixWork:
             m, f = row_ls.shape
             if self.sampling:
                 self.samples.setdefault((m, call), tuple(
-                    a.cpu() if isinstance(a, torch.Tensor) else a for a in (criterion, row_ls, *args)
+                    a.cpu() if isinstance(a, torch.Tensor) else a for a in args
                 ))
             else:
                 if self.log:
-                    self._log_rows(row_ls, mask, seg_start)
+                    self._log_rows(row_ls, mask, seg_start, need)
                 note = (m, f, n_mom, call, self.log)
                 if self.graphs.capturing is not None:
                     self.graphs.capturing.notes.setdefault("prefix", []).append(note)
                 else:
                     self.seen.append(note)
-        return self.launch(criterion, row_ls, *args)
+        # A checkout whose wrapper takes no ``need`` is called without it
+        return self.launch(*(args if need is not None else args[:8]))
 
     def _replayed(self, prog, stage: str) -> None:
         if stage == "after":
             self.seen.extend(prog.notes.get("prefix", ()))
 
     def rows(self) -> np.ndarray:
-        r"""(launches, 2): each launch's rows read and longest run, in the
-        order of ``seen``."""
+        r"""(launches, 4): each launch's rows in the mask, longest run, rows
+        in ``need`` and rows of ``row_ls`` read, in the order of
+        ``seen``."""
         if self._rows is None:
             if not all(note[4] for note in self.seen):
                 raise AssertionError("a prefix-commit launch ran in a program captured without the log")
@@ -1497,15 +1677,17 @@ class _PrefixWork:
             self._rows = ring[torch.arange(self._start, end) % PREFIX_LOG_CAP].cpu().numpy()
         return self._rows
 
-    def bound_ms(self) -> float:
+    def bound_ms(self, full: bool = False) -> float:
         return sum(
-            _prefix_bound(m, f, n_mom, call != "screen", int(read))["bound_ms"]
-            for (m, f, n_mom, call, _logged), (read, _run) in zip(self.seen, self.rows())
+            _prefix_bound(m, f, n_mom, call != "screen", int(in_mask))["bound_ms"] if full
+            else _prefix_bound(m, f, n_mom, call != "screen", int(read), int(needed))["bound_ms"]
+            for (m, f, n_mom, call, _logged), (in_mask, _run, needed, read)
+            in zip(self.seen, self.rows())
         )
 
     def traffic(self) -> dict:
         r"""Per (M, call): launches, and the quartiles of the mask's share
-        of the rows and of the longest run."""
+        of the rows, of the needed rows' share and of the longest run."""
         rows = self.rows()
         out = {}
         for key in sorted({(n[0], n[3]) for n in self.seen}, key=lambda k: (-k[0], k[1])):
@@ -1514,14 +1696,18 @@ class _PrefixWork:
             out[f"M={key[0]} {key[1]}"] = {
                 "launches": int(pick.sum()),
                 "mask_share": [float(v) for v in np.percentile(rows[pick, 0] / key[0], q)],
+                "need_share": [float(v) for v in np.percentile(rows[pick, 2] / key[0], q)],
                 "longest_run": [float(v) for v in np.percentile(rows[pick, 1], q)],
             }
         return out
 
     def traffic_text(self) -> str:
+        def q(v, fmt):
+            return "/".join(format(x, fmt) for x in v)
+
         return "; ".join(
-            f"{k}: {v['launches']} launches, mask share {'/'.join(f'{x:.3f}' for x in v['mask_share'])}, "
-            f"longest run {'/'.join(f'{x:.0f}' for x in v['longest_run'])} (quartiles)"
+            f"{k}: {v['launches']} launches, mask share {q(v['mask_share'], '.3f')}, need share "
+            f"{q(v['need_share'], '.3f')}, longest run {q(v['longest_run'], '.0f')} (quartiles)"
             for k, v in self.traffic().items()
         )
 
@@ -1530,7 +1716,7 @@ class _PrefixWork:
             dev = torch.device("cuda", torch.cuda.current_device())
             if dev not in _PREFIX_LOG:
                 _PREFIX_LOG[dev] = (
-                    torch.zeros((PREFIX_LOG_CAP, 2), dtype=torch.int64, device=dev),
+                    torch.zeros((PREFIX_LOG_CAP, 4), dtype=torch.int64, device=dev),
                     torch.zeros((1,), dtype=torch.int64, device=dev),
                 )
             torch.cuda.synchronize()
@@ -1737,7 +1923,8 @@ def phase_full_size() -> dict:
                 say(
                     f"phase 4 t={thr} prefix-commit traffic (logged on the card, every launch): "
                     f"{prefix.traffic_text()}; bounds summed over the fit's launches "
-                    f"{prefix.bound_ms():.3f} ms"
+                    f"{prefix.bound_ms():.3f} ms ({prefix.bound_ms(full=True):.3f} ms with "
+                    f"cand_ls read whole)"
                 )
                 prefix_samples = prefix.samples
             if n_sorted <= 0 or n_plan <= 0:

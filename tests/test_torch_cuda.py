@@ -4,8 +4,9 @@ launch modes), the sort plan's item-table kernel and the route kernel
 TMA path and the generic one, near ties, the clamped last block, ragged
 rows and more work units than SMs) and the prefix-commit kernel (the
 insert round's screen and two passes, all six criteria, every layout of
-segments, sums past 2^16, the vote's edge, several column tiles, inside a
-captured CUDA graph) against their plain versions, CPU and CUDA fits giving the
+segments, sums past 2^16, the vote's edge, several column tiles, with and
+without ``need``, the look-back's stress cases, inside a captured CUDA
+graph) against their plain versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
@@ -759,15 +760,16 @@ def _prefix_case(m, f, layout, big=False, vote_edge=False):
     return chip_smoke.prefix_commit_case(rng, m, f, layout, big=big, vote_edge=vote_edge)
 
 
-def _prefix_both(criterion, case, device) -> None:
-    r"""The round's three calls on ``case``: the kernel's moments and
-    accept masks equal the plain version's; one launch a call (none for
-    never-merge, which has no moments)."""
+def _prefix_both(criterion, case, device, need) -> None:
+    r"""The round's three calls on ``case`` (with ``need`` as the engine
+    passes it, or without): the kernel's moments and accept masks equal
+    the plain version's; one launch a call (none for never-merge, which
+    has no moments)."""
     import chip_smoke
     from bblean_tpu_torch.ops import prefix_commit as pc
     from bblean_tpu_torch.ops.merges import moment_count
 
-    for mode, (args, nom_n) in chip_smoke.prefix_commit_uses(criterion, case, device).items():
+    for mode, (args, nom_n) in chip_smoke.prefix_commit_uses(criterion, case, device, need).items():
         before = pc.launches
         got = pc.prefix_commit_moments(*args)
         assert pc.launches == before + (moment_count(criterion) > 0)
@@ -786,8 +788,10 @@ def _prefix_both(criterion, case, device) -> None:
 @pytest.mark.parametrize("m,f,layout", [(8192, 2048, "t=0.3 runs"), (2048, 2048, "mixed")])
 def test_prefix_commit_kernel_matches_plain(cuda, m, f, layout, criterion) -> None:
     r"""The wide and the narrow rounds' shapes: screen, pass 1 and pass 2
-    bit-equal to the plain version (moments and masks)."""
-    _prefix_both(criterion, _prefix_case(m, f, layout), cuda)
+    bit-equal to the plain version (moments and masks), with and without
+    ``need``."""
+    for need in (False, True):
+        _prefix_both(criterion, _prefix_case(m, f, layout), cuda, need)
 
 
 @pytest.mark.parametrize(
@@ -806,7 +810,24 @@ def test_prefix_commit_kernel_matches_plain(cuda, m, f, layout, criterion) -> No
 def test_prefix_commit_kernel_edges(cuda, m, f, layout, kw) -> None:
     case = _prefix_case(m, f, layout, **kw)
     for criterion in ("diameter", "tolerance-radius", "tolerance-legacy", "radius"):
-        _prefix_both(criterion, case, cuda)
+        for need in (False, True):
+            _prefix_both(criterion, case, cuda, need)
+
+
+@pytest.mark.parametrize("kind", ["one segment", "chunk-aligned segments",
+                                  "long stretches without need", "zero stretches",
+                                  "screen stretches"])
+def test_prefix_commit_lookback_stress(cuda, kind) -> None:
+    r"""The look-back across chunks (``chip_smoke.prefix_lookback_case`` at
+    8,187 rows, which no chunk divides): one segment of every row,
+    segments that start exactly at chunk boundaries, long stretches of
+    chunks with no needed row and of chunks with nothing to read, the
+    screen with needed rows at both ends; bit-equal to the plain version
+    on each of 50 launches and of 20 replays of a captured CUDA graph."""
+    import chip_smoke
+
+    args = chip_smoke.prefix_stress_args(np.random.default_rng(41), kind, cuda)
+    chip_smoke.prefix_stress_check(args)
 
 
 def test_prefix_commit_kernel_in_a_cuda_graph(cuda) -> None:
@@ -817,7 +838,7 @@ def test_prefix_commit_kernel_in_a_cuda_graph(cuda) -> None:
     from bblean_tpu_torch.ops import prefix_commit as pc
 
     case = _prefix_case(2048, 2048, "t=0.3 runs")
-    args, _nom = chip_smoke.prefix_commit_uses("tolerance-radius", case, cuda)["pass 1"]
+    args, _nom = chip_smoke.prefix_commit_uses("tolerance-radius", case, cuda, True)["pass 1"]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -837,12 +858,13 @@ def test_prefix_commit_wrapper_rejects_bad_inputs(cuda) -> None:
     import chip_smoke
     from bblean_tpu_torch.ops import prefix_commit as pc
 
-    args, _nom = chip_smoke.prefix_commit_uses("diameter", _prefix_case(64, 64, "mixed"), cuda)["pass 1"]
+    args, _nom = chip_smoke.prefix_commit_uses("diameter", _prefix_case(64, 64, "mixed"), cuda, True)["pass 1"]
     bad = {
         1: args[1].to(torch.int64),  # row sums' dtype
         2: args[2].t(),  # not contiguous
         3: args[3].cpu(),  # another device
         5: args[5][:-1],  # the order's length
+        8: args[8].to(torch.int32),  # need's dtype
     }
     for i, t in bad.items():
         with pytest.raises(ValueError):

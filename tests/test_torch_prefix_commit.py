@@ -311,12 +311,15 @@ def test_wrapper_runs_the_plain_version_on_the_cpu() -> None:
 
 
 def test_chunks_fill_the_card() -> None:
-    r"""About two chunks an SM on 132 SMs at both widths of a fit's rounds,
-    and one row a chunk where rows are few."""
-    for m in (8192, 2048):
-        rows = pc._chunk_rows(m, 132)
-        assert rows <= 32 and -(-m // rows) == 256
-    assert pc._chunk_rows(64, 132) == 1
+    r"""At both widths of a fit's rounds (2048 bits, 8 column tiles) on 132
+    SMs, chunks of 16 rows (a block's two items take 64 KiB, three blocks
+    an SM) give every SM at least four (chunk, tile) items; where rows are
+    few, the chunks shrink, down to one row."""
+    for m, want in ((8192, 16), (2048, 16)):
+        rows = pc._chunk_rows(m, 2048, 132)
+        items = -(-m // rows) * -(-2048 // pc._TILE_COLS)
+        assert rows == want and items >= 4 * 132
+    assert pc._chunk_rows(64, 64, 132) == 1
 
 
 def test_prefix_bound_charges_the_rows_in_the_mask() -> None:
@@ -358,3 +361,125 @@ def test_insert_round_tests_through_the_wrapper(monkeypatch) -> None:
     assert calls["round"] > 0
     assert calls["prefix"] == 3 * calls["round"]
     assert calls["accept"] == calls["round"]
+
+
+def _np_need_moments(criterion, case_args):
+    r"""The contract's moments of one call by the loop of ``_np_prefix``
+    (rows outside ``need`` zeros); ``case_args`` in numpy."""
+    _c, row_ls, cand_ls, new_n, old_n, order, mask, seg, need = case_args
+    m = row_ls.shape[0]
+    order = np.arange(m) if order is None else order
+    mask = np.ones(m, bool) if mask is None else mask
+    seg = np.arange(m) if seg is None else seg
+    x, y = _np_prefix(row_ls, cand_ls, order, mask, seg)
+    mom = _np_moments(criterion, x, new_n, y, old_n)
+    return np.where(need, mom, 0)
+
+
+@pytest.mark.parametrize("call", ["screen", "pass 1", "pass 2"])
+@pytest.mark.parametrize("criterion", DEVICE_MERGES)
+@pytest.mark.parametrize("layout", chip_smoke.PREFIX_LAYOUTS)
+def test_need_keeps_the_needed_rows(layout, criterion, call) -> None:
+    r"""With ``need`` (as the engine passes it: the screen's candidates,
+    each pass's mask), the plain version's moments equal the full
+    contract's on the needed rows and are zero elsewhere, and the call's
+    accept mask equals JAX's round's (the screen's ANDed with the rows the
+    engine keeps)."""
+    rng = np.random.default_rng(SEED + chip_smoke.PREFIX_LAYOUTS.index(layout))
+    case = chip_smoke.prefix_commit_case(rng, 64, 64, layout)
+    full, nom = chip_smoke.prefix_commit_uses(criterion, case, "cpu")[call]
+    args, nom_need = chip_smoke.prefix_commit_uses(criterion, case, "cpu", need=True)[call]
+    need = args[8]
+    assert need is not None and torch.equal(nom, nom_need)
+    if call != "screen":
+        assert torch.equal(need, args[6])
+    mom = pc.prefix_commit_moments_plain(*args)
+    assert torch.equal(mom[:, need], pc.prefix_commit_moments_plain(*full)[:, need])
+    assert not bool(mom[:, ~need].any())
+    np.testing.assert_array_equal(
+        mom.numpy(), _np_need_moments(criterion, [a.numpy() if isinstance(a, torch.Tensor) else a for a in args])
+    )
+    got = chip_smoke.prefix_commit_accept(args, nom, mom)
+    assert torch.equal(got, chip_smoke.prefix_commit_accept(full, nom, pc.prefix_commit_moments_plain(*full)) & need)
+    screen, aorder, _seg, acc_pref, acc2 = _jax_round(criterion, *case)
+    if call == "screen":
+        np.testing.assert_array_equal(got.numpy(), screen & need.numpy())
+    else:
+        assert np.array_equal(args[5].numpy(), aorder)
+        np.testing.assert_array_equal(got.numpy(), acc_pref if call == "pass 1" else acc2)
+
+
+@pytest.mark.parametrize("kind", chip_smoke.PREFIX_STRESS)
+def test_lookback_cases_on_the_cpu(kind) -> None:
+    r"""The card's look-back stress cases, cut to 203 rows of 64 columns in
+    chunks of 4: the plain version (with ``need``) equals the contract's
+    moments by a loop over the rows; each case holds what it claims."""
+    rows, m = 4, 203
+    case = chip_smoke.prefix_lookback_case(np.random.default_rng(SEED + 11), m, 64, rows, kind)
+    args = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in case)
+    mom = pc.prefix_commit_moments_plain(*args)
+    np.testing.assert_array_equal(mom.numpy(), _np_need_moments(case[0], case))
+    need, seg = case[8], case[7]
+    assert m % rows and need.any() and not need.all() or kind in ("one segment", "chunk-aligned segments")
+    if kind == "one segment":
+        assert not seg.any() and need.all()
+    elif kind == "chunk-aligned segments":
+        starts = np.flatnonzero(seg == np.arange(m))
+        assert len(starts) > 1 and not (starts % rows).any()
+    elif kind == "zero stretches":
+        assert not (case[6] | need)[4 * rows:m - 3 * rows].any()
+    elif kind == "screen stretches":
+        assert seg is None and case[5] is None
+    assert np.array_equal(chip_smoke._prefix_reads(args), (
+        m if case[6] is None else case[6].sum(),
+        need.sum() if seg is None else (m if case[6] is None else case[6].sum()),
+        need.sum(),
+    ))
+
+
+def test_prefix_bound_charges_cand_ls_for_the_needed_rows() -> None:
+    r"""With ``needed`` the bound reads ``cand_ls`` for those rows only (and
+    the (M,) need flags): a pass with none needed and none in its mask
+    reads almost nothing of the tables; without it the bound is the one
+    that charges ``cand_ls`` whole."""
+    m, f = 8192, 2048
+    tables = m * f * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    empty = chip_smoke._prefix_bound(m, f, 2, True, 0, 0)
+    assert empty["bound_ms"] < 0.01 * tables
+    half = chip_smoke._prefix_bound(m, f, 2, True, m // 2, m // 2)
+    assert abs(half["bound_ms"] - empty["bound_ms"] - tables) < 1e-9 * tables
+    assert chip_smoke._prefix_bound(m, f, 2, True, 7)["bound_ms"] == pytest.approx(
+        chip_smoke._prefix_bound(m, f, 2, True, 7, m)["bound_ms"] - m / chip_smoke.HBM_BYTES_PER_S * 1e3,
+        rel=1e-12,
+    )
+
+
+def test_insert_round_passes_need(monkeypatch) -> None:
+    r"""Each insert round's three calls pass ``need``: the screen the rows
+    whose result it keeps (pending, with a candidate, struck fewer than
+    twice: rows beside them), each pass its mask."""
+    from bblean_tpu_torch import BatchTree
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+
+    calls = []
+
+    def recorded(criterion, row_ls, cand_ls, new_n, old_n, order=None, mask=None,
+                 seg_start=None, need=None):
+        calls.append((seg_start is None, mask, need))
+        return pc.prefix_commit_moments(
+            criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start, need
+        )
+
+    monkeypatch.setattr(tb, "prefix_commit_moments", recorded)
+    fps = make_fake_fingerprints(300, 256, seed=5)
+    tree = BatchTree(256, threshold=0.3, batch_size=64, device="cpu")
+    tree.fit_packed(fps, range(300))
+    assert calls and len(calls) % 3 == 0
+    for k, (screen, mask, need) in enumerate(calls):
+        assert screen == (k % 3 == 0)
+        assert need is not None and need.dtype == torch.bool
+        if screen:
+            assert mask is None
+        else:
+            assert mask is need
+    assert any(bool((~need).any()) for _s, _m, need in calls[::3])
