@@ -6,7 +6,9 @@ t = 0.5 and 2^16 from it, cluster capacity 2^23 / 2^24, linear-sum pool
 2^16), the main path ``BatchTree.fit_packed`` with both tile-search
 kernels of ``csrc/tile_search.cu`` at 512-cell tiles and the route kernel
 of ``csrc/route.cu`` over up to 43k groups, and the prefix-commit kernel
-of ``csrc/prefix_commit.cu`` three times an insert round.
+of ``csrc/prefix_commit.cu`` three times an insert round, the leader
+election of ``csrc/leader_election.cu`` and the pool and tile writes of
+``csrc/commit_writes.cu`` once a round.
 
 Usage, from the repository root::
 
@@ -23,9 +25,10 @@ loaded, the caching allocator warmed), the timed tree runs
 
 It prints the fit's wall and fps/s, the cluster count (beside the JAX
 record's, as information), the groups, the linear-sum pool's rows, the
-tile-search, route and prefix-commit kernels' launches in the fit (it
-fails if the sorted front end, the plan kernel, the route or the prefix
-commits never ran, a launch took
+tile-search, route, prefix-commit, leader-election and writes kernels'
+launches in the fit (it fails if the sorted front end, the plan kernel,
+the route, the prefix commits, the election or the writes never ran, a
+launch took
 a generic path, or a route launch missed the TMA path), the
 extraction's wall (``cluster_sizes`` + ``cluster_mols``; every molecule
 must come out once), the card's peak allocated memory from the timed
@@ -68,7 +71,9 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("scale_10m: torch.cuda.is_available() is False; no result")
     from bblean_tpu_torch import BatchTree
     from bblean_tpu_torch.fingerprints import make_fake_fingerprints
-    from bblean_tpu_torch.ops import prefix_commit, route, tile_search
+    from bblean_tpu_torch.ops import (
+        commit_writes, leader_election, prefix_commit, route, tile_search,
+    )
 
     n_m = int(argv[0]) if len(argv) > 0 else 10
     threshold = float(argv[1]) if len(argv) > 1 else 0.65
@@ -137,7 +142,7 @@ def main(argv: list[str] | None = None) -> None:
     tile_search.launches = tile_search.row_launches = 0
     tile_search.plan_launches = tile_search.generic_launches = 0
     route.route_launches = route.generic_launches = route.wgmma_launches = 0
-    prefix_commit.launches = 0
+    prefix_commit.launches = leader_election.launches = commit_writes.launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
@@ -149,6 +154,7 @@ def main(argv: list[str] | None = None) -> None:
         "plan": tile_search.plan_launches, "generic": tile_search.generic_launches,
         "route": route.route_launches, "route_generic": route.generic_launches,
         "route_wgmma": route.wgmma_launches, "prefix_commit": prefix_commit.launches,
+        "leader_election": leader_election.launches, "commit_writes": commit_writes.launches,
     }
     groups, ls_rows = tree.num_groups, int(tree.state.num_ls)
     print(
@@ -157,7 +163,11 @@ def main(argv: list[str] | None = None) -> None:
         flush=True,
     )
     if (
-        min(launches["sorted"], launches["plan"], launches["route"], launches["prefix_commit"]) <= 0
+        min(
+            launches[k] for k in (
+                "sorted", "plan", "route", "prefix_commit", "leader_election", "commit_writes",
+            )
+        ) <= 0
         or launches["generic"] or launches["route_generic"]
         or launches["route_wgmma"] != launches["route"]
     ):

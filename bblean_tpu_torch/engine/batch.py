@@ -71,13 +71,21 @@ from bblean_tpu_torch.engine import graphs
 from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
 from bblean_tpu_torch.ops.merges import merge_accept_batch, merge_accept_from_moments
 from bblean_tpu_torch.ops.prefix_commit import prefix_commit_moments
+from bblean_tpu_torch.ops.commit_writes import commit_writes
+from bblean_tpu_torch.ops.leader_election import elect_leaders
+from bblean_tpu_torch.ops.leader_election import tanimoto_gram as _tanimoto_gram
 from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
 )
-from bblean_tpu_torch.ops import prefix_commit, route, tile_search
+from bblean_tpu_torch.ops import (
+    commit_writes as _commit_writes,
+    leader_election,
+    prefix_commit,
+    route,
+    tile_search,
+)
 from bblean_tpu_torch.ops.popcount import _popcount_u8
-from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
 from bblean_tpu_torch.ops.tile_search import (
     sorted_search_plan,
     tile_search_planned,
@@ -87,7 +95,6 @@ from bblean_tpu_torch.ops.tile_search import (
 
 __all__ = ["BatchTree", "BatchState"]
 
-_NEG = -2.0  # below any similarity
 _BIG = 1 << 30  # sort key of masked rows
 _I32 = torch.int32
 # Routing/row centroids are exactly 0/1 valued, so int8 products with int32
@@ -107,6 +114,8 @@ graphs.count_launches(
     route, "route_launches", "best_sim_launches", "wgmma_launches", "generic_launches"
 )
 graphs.count_launches(prefix_commit, "launches")
+graphs.count_launches(leader_election, "launches")
+graphs.count_launches(_commit_writes, "launches")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -321,17 +330,6 @@ def _flat2(tab: torch.Tensor) -> torch.Tensor:
     return tab.view(tab.shape[0] * tab.shape[1], *tab.shape[2:])
 
 
-def _tanimoto_gram(
-    cent: torch.Tensor, pop: torch.Tensor, out: torch.Tensor | None = None
-) -> torch.Tensor:
-    r"""All-pairs f32 Tanimoto of 0/1 rows (the leader election's sims),
-    written into ``out`` when given."""
-    m = cent.shape[0]
-    inter = _int8_gram(_pad_int8(cent, 17), cent, m).to(torch.float32)
-    union = (pop[:, None] + pop[None, :]).to(torch.float32) - inter
-    return torch.div(inter, union.clamp_min(1.0), out=out)
-
-
 def _route_groups(
     row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
     row_pop: torch.Tensor,  # (M,) int32
@@ -386,6 +384,37 @@ def _scatter_perm(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _Stages:
+    r"""``torch.profiler`` ranges around the stages of an insert round
+    (``insert_round/<stage>``), one open at a time: ``stage(name)`` closes
+    the open range and opens the next, ``stage.end()`` closes it.  A
+    trace shows each stage's host time and the torch kernels it launched;
+    ``chip_ab.py --rounds`` puts marker kernels at the same boundaries to
+    split a dispatched round's device time by stage.  With no profiler
+    running a range costs a microsecond of host time, and a replayed round
+    runs none."""
+
+    def __init__(self) -> None:
+        self._open = None
+
+    def __call__(self, name: str) -> None:
+        self.end()
+        self._open = torch.profiler.record_function(f"insert_round/{name}")
+        self._open.__enter__()
+
+    def end(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+
+# The stages of an insert round, in order, as its profiler ranges name them
+ROUND_STAGES = (
+    "search", "screen", "commits", "election", "cohesion", "create guard",
+    "positions", "tables", "tile writes", "pool writes",
+)
+
+
 def _insert_round(
     state: BatchState,
     pending: torch.Tensor,
@@ -411,7 +440,8 @@ def _insert_round(
     rows commits exactly what the full-width round would (what makes the
     narrow retry rounds label-preserving).  ``row_group`` is the per-row
     routed group, computed once per step.  ``row_sims`` optionally carries
-    the step-constant all-pairs row Tanimoto; None computes it in-round.
+    the step-constant all-pairs row Tanimoto; None has the leader election
+    compute its pairs' sims from the packed rows in-round.
     ``search_plan`` is the step's sort plan ``(rows, pops, keys, order,
     items)`` for the sorted search; None runs the per-row search (no sort).
 
@@ -423,8 +453,10 @@ def _insert_round(
     tile = state.t_pk.shape[1]
     row_idx = torch.arange(m, dtype=_I32, device=dev)
     force_lead = strikes >= 2
+    stage = _Stages()
 
     # ---- 2. in-group candidate search (sorted on a plan, else per row) ----
+    stage("search")
     if search_plan is not None:
         srows, spops, skey, order, items = search_plan
         best_sim, best = tile_search_planned(
@@ -441,6 +473,7 @@ def _insert_round(
 
     # ---- 3. individual merge evaluation (ops/prefix_commit.py: every row
     # its own segment, nothing before it) ----
+    stage("screen")
     cand_ls = _cluster_ls_of(state, best_l, n_features)
     cand_n = state.n[best_l]
     cand_ref = state.ls_ref[best_l]
@@ -457,6 +490,7 @@ def _insert_round(
     accept = accept & screened
 
     # ---- conflict resolution: serial prefix commits per candidate ----
+    stage("commits")
     akey = torch.where(accept, best, _BIG)
     aorder, agrp, astart = _group_ids_by_key(akey)
     a_ok = accept[aorder]
@@ -515,41 +549,30 @@ def _insert_round(
     merge_commit = _scatter_perm(aorder, committed_sorted)
 
     # ---- 4. leader election among rejected rows (per routed group) ----
+    stage("election")
     rejected = pending & ~accept
     if criterion == "never-merge":
         leader = rejected
         join = torch.zeros((m,), dtype=torch.bool, device=dev)
         lead_of = row_idx
     else:
-        if row_sims is not None:
-            # Step-constant sims: every use below is gated on both
-            # endpoints being rejected, where masked and unmasked agree
-            rsims = row_sims
-        else:
-            rcent = torch.where(rejected[:, None], row_cent, 0)
-            rpop = torch.where(rejected, row_pop, 0)
-            rsims = _tanimoto_gram(rcent, rpop)
-        same_group = row_group[:, None] == row_group[None, :]
-        lower = row_idx[None, :] < row_idx[:, None]  # [j, i]: i < j
-        sim_to_lower = torch.where(
-            lower & rejected[None, :] & same_group, rsims, _NEG
+        # ops/leader_election.py: the pairs of one routed group, through the
+        # step's sort plan in wide rounds (every rejected row sits in its
+        # group's segment there) and the row sims computed from the packed
+        # rows in narrow ones
+        leads, lead_of, best_lead_sim = elect_leaders(
+            rejected, force_lead, row_group, threshold, sims=row_sims,
+            row_pk=row_pk if row_sims is None else None,
+            row_pop=row_pop if row_sims is None else None,
+            plan=None if search_plan is None else (search_plan[3], search_plan[2]),
         )
-        del same_group, lower
-        # Rows whose join failed last round self-promote
-        leads = rejected & (
-            force_lead | ~torch.any(sim_to_lower >= threshold, dim=1)
-        )
-        sim_to_leader = torch.where(leads[None, :], sim_to_lower, _NEG)
-        del sim_to_lower
-        lead_of = torch.argmax(sim_to_leader, dim=1).to(_I32)
-        best_lead_sim = sim_to_leader.amax(dim=1)
-        del sim_to_leader
         join = rejected & ~leads & (best_lead_sim >= threshold)
         leader = leads
         lead_of = torch.where(leader, row_idx, lead_of)
     lead_of_l = lead_of.long()
 
     # Cohesion check of each leader's would-be cluster
+    stage("cohesion")
     jkey = torch.where(leader | join, lead_of, _BIG)
     jorder, jgrp, _jstart = _group_ids_by_key(jkey)
     jgrp_l = jgrp.long()
@@ -571,10 +594,11 @@ def _insert_round(
 
     # ---- pool-capacity guard (create side); runs before tile positions
     # are ranked so that a dropped creator leaves no hole in its tile ----
-    gj_full_ls = _scatter_perm(jorder, gj_ls[jgrp_l])
-    gj_full_n = _scatter_perm(jorder, gj_n[jgrp_l])
-    del gj_ls
-    pool_created_ls = torch.where(join_ok[:, None], gj_full_ls, row_ls)
+    stage("create guard")
+    # Each row's cohesion segment: its sums are gj_ls[jseg] (read by
+    # ops/commit_writes.py, not spread to an (M, F) plane)
+    jseg = _scatter_perm(jorder, jgrp)
+    gj_full_n = gj_n[jseg.long()]
     pool_created_n = torch.where(join_ok, gj_full_n, row_n)
     create_pool_try = creator & (pool_created_n >= 2)
     ref_create = state.num_ls + n_promo + _icumsum(create_pool_try.to(_I32)) - 1
@@ -585,6 +609,7 @@ def _insert_round(
     # ---- 5. tile positions for new clusters (per group, index order);
     # creations into full tiles open fresh overflow groups, packed densely
     # in chunks of `tile` per routed group ----
+    stage("positions")
     ckey = torch.where(creator, row_group, _BIG)
     corder, cgrp, _cstart = _group_ids_by_key(ckey)
     crank = _scatter_perm(corder, _segment_rank(cgrp, creator[corder]))
@@ -622,6 +647,7 @@ def _insert_round(
     commit = merge_commit | create_commit | join_commit
 
     # ---- 6. commit the flat cluster tables (in place) ----
+    stage("tables")
     num = state.num + _isum(create_commit)
     g_num = torch.clamp_max(state.g_num + _isum(seg_new), g_cap - 1)
     _drop_set_(state.group, new_slot, tgt_group, create_commit)
@@ -632,31 +658,26 @@ def _insert_round(
 
     # ---- 7. tile entries for CREATED clusters (merged clusters keep a
     # slightly stale tile centroid until the step's refresh) ----
-    created_ls = torch.where((join_ok & fits)[:, None], gj_full_ls, row_ls)
+    stage("tile writes")
     created_n = torch.where(join_ok & fits, gj_full_n, row_n)
-    del gj_full_ls
-    c_cent = majority_centroid_from_sums(created_ls, created_n.clamp_min(1))
-    del created_ls
-    c_packed = pack_fingerprints_device(c_cent)
     cell = tgt_group * tile + tgt_pos
-    _drop_set_(_flat2(state.t_pk), cell, c_packed, create_commit)
-    _drop_set_(_flat2(state.t_pops), cell, _isum(c_cent, -1), create_commit)
-    _drop_set_(_flat2(state.t_slot), cell, new_slot, create_commit)
-    del c_cent
 
     # ---- 8. sparse linear-sum pool: promotions (old bits + this round's
     # committed rows) and multi-member creations; merge updates are
-    # pre-aggregated per candidate segment (one writer row each) ----
-    agrp_l = agrp.long()
-    seg_add_ls = _segment_sum(
-        torch.where(committed_sorted[:, None], row_ls[aorder], 0), agrp, m
-    )[agrp_l]
-    num_ls = state.num_ls + n_promo + _isum(create_pool_try & create_ok)
-    _drop_set_(state.ls, ref_promo_sorted, cand_ls[aorder] + seg_add_ls, promo_sorted)
-    _drop_add_(state.ls, cand_ref_s, seg_add_ls, adder_sorted)
-    _drop_set_(state.ls, ref_create, pool_created_ls, create_pool)
-    del seg_add_ls, pool_created_ls
+    # pre-aggregated per candidate segment (one writer row each).  With
+    # step 7's tile cells, written by ops/commit_writes.py (one kernel on
+    # the card) ----
+    stage("pool writes")
     best_s = best[aorder]
+    commit_writes(
+        state.ls, state.t_pk, state.t_pops, state.t_slot, state.group, state.pos,
+        row_ls, gj_ls, aorder, agrp, committed_sorted, promo_sorted, adder_sorted,
+        ref_promo_sorted, cand_ref_s, best_s, jseg, join_ok, fits, create_pool,
+        ref_create, create_commit, created_n, cell, new_slot,
+    )
+    del gj_ls
+    agrp_l = agrp.long()
+    num_ls = state.num_ls + n_promo + _isum(create_pool_try & create_ok)
     _drop_set_(state.ls_ref, best_s, ref_promo_sorted, promo_sorted)
     _drop_set_(state.ls_ref, new_slot, ref_create, create_pool)
 
@@ -675,6 +696,7 @@ def _insert_round(
         | (leader & ~create_commit)
     )
     strikes = torch.where(pending, strikes + struck.to(_I32), 0)
+    stage.end()
     return state._replace(num_ls=num_ls, num=num, g_num=g_num), pending, assigned, strikes
 
 

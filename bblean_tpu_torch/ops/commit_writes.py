@@ -1,0 +1,254 @@
+r"""The insert round's pool and tile writes, with a CUDA kernel on the card
+and the plain PyTorch version.
+
+Counterpart of the lines of ``bblean_tpu/engine/batch.py`` that JAX fuses
+inside its jitted step: ``:572-579`` (each joint creation's sums spread to
+its rows), ``:660-684`` (step 7: the tile entries of the created clusters)
+and ``:686-723`` (step 8: the linear-sum pool's promotions, adds and
+pooled creations).  The decisions stay in the batch engine's torch code
+(O(M) masks and indices); this module writes their (F,)-wide results.
+
+Contract (int32 sums wrap; tables updated in place).  Sorted positions
+``p`` of the round's candidate sort (``aorder``, segments ``agrp``): a
+segment's writer is its one position with ``promo[p]`` or ``adder[p]``,
+and ``seg_add`` the sum of ``row_ls[aorder[p]]`` over its positions with
+``committed[p]``.
+
+- promotion: ``ls[ref_promo[p]] = bits(t_pk[group[best_s[p]], pos[best_s[p]]])
+  + seg_add`` (the candidate's old singleton bits);
+- adder: ``ls[cand_ref[p]] += seg_add``;
+- ``create_pool[r]``: ``ls[ref_create[r]] = gj_ls[jseg[r]]`` where
+  ``join_ok[r]``, else ``row_ls[r]``;
+- ``create_commit[r]``: the majority vote of ``gj_ls[jseg[r]]`` where
+  ``join_ok[r] & fits[r]``, else of ``row_ls[r]``, at
+  ``created_n[r].clamp_min(1)`` (``ops/isim.py::majority_centroid_from_sums``,
+  its ``n <= 1`` rule included): its packed bits into ``t_pk``, its
+  popcount into ``t_pops`` and ``new_slot[r]`` into ``t_slot``, at
+  ``cell[r]`` of the flattened (G * Fc) tiles.
+
+Nothing is written outside the masks or at an index past a table's
+capacity (JAX's ``mode="drop"``); kept indices are unique, so the guard
+row keeps its value.  The kernel's tables equal the plain version's bit
+for bit.
+
+Dispatch: tensors on the CPU go to :func:`commit_writes_plain` (the torch
+chain of (M, F) planes the engine ran before: gathers, selects, the
+segment sum, the vote and the drop-mode scatters); tensors on a CUDA device
+go to the hand-written kernel of ``csrc/commit_writes.cu`` and anything it
+does not take raises.  There is no fallback from the kernel to the plain
+version.  ``launches`` counts the wrapper's calls that launched the kernel
+(each call launches its two phases: the sets, then the adds and the tile
+cells).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
+from bblean_tpu_torch.ops.packing import (
+    pack_fingerprints_device,
+    unpack_fingerprints_device,
+)
+
+__all__ = [
+    "commit_writes",
+    "commit_writes_plain",
+    "launches",
+]
+
+_I32 = torch.int32
+_SOURCE = "commit_writes.cu"
+
+# Calls of commit_writes that launched the kernel
+launches = 0
+
+_kernel_lib: ctypes.CDLL | None = None
+
+# The (M,) inputs: name -> dtype (every other argument is a table or an
+# (M, F) row plane)
+_ROW_INPUTS = {
+    "aorder": torch.int64, "agrp": _I32, "committed": torch.bool, "promo": torch.bool,
+    "adder": torch.bool, "ref_promo": _I32, "cand_ref": _I32, "best_s": _I32,
+    "jseg": _I32, "join_ok": torch.bool, "fits": torch.bool, "create_pool": torch.bool,
+    "ref_create": _I32, "create_commit": torch.bool, "created_n": _I32, "cell": _I32,
+    "new_slot": _I32,
+}
+
+
+def _lib() -> ctypes.CDLL:
+    global _kernel_lib
+    if _kernel_lib is None:
+        from bblean_tpu_torch._build import load_kernel_library
+
+        lib = load_kernel_library(_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bb_commit_writes.argtypes = [p] * 26 + [i] * 6 + [p]
+        lib.bb_commit_writes.restype = i
+        _kernel_lib = lib
+    return _kernel_lib
+
+
+def commit_writes_plain(
+    ls: torch.Tensor,  # (P_cap, F) int32 pool, in place
+    t_pk: torch.Tensor,  # (G_cap, Fc, F8) uint8 tiles, in place
+    t_pops: torch.Tensor,  # (G_cap, Fc) int32, in place
+    t_slot: torch.Tensor,  # (G_cap, Fc) int32, in place
+    group: torch.Tensor,  # (C_cap,) int32
+    pos: torch.Tensor,  # (C_cap,) int32
+    row_ls: torch.Tensor,  # (M, F) int32, row order
+    gj_ls: torch.Tensor,  # (M, F) int32 joint creations' sums by segment
+    aorder: torch.Tensor,  # (M,) int64 sorted -> row
+    agrp: torch.Tensor,  # (M,) int32 segment of each sorted position
+    committed: torch.Tensor,  # (M,) bool, sorted
+    promo: torch.Tensor,  # (M,) bool, sorted
+    adder: torch.Tensor,  # (M,) bool, sorted
+    ref_promo: torch.Tensor,  # (M,) int32, sorted
+    cand_ref: torch.Tensor,  # (M,) int32, sorted
+    best_s: torch.Tensor,  # (M,) int32, sorted
+    jseg: torch.Tensor,  # (M,) int32 row -> gj_ls row
+    join_ok: torch.Tensor,  # (M,) bool
+    fits: torch.Tensor,  # (M,) bool
+    create_pool: torch.Tensor,  # (M,) bool
+    ref_create: torch.Tensor,  # (M,) int32
+    create_commit: torch.Tensor,  # (M,) bool
+    created_n: torch.Tensor,  # (M,) int32
+    cell: torch.Tensor,  # (M,) int32
+    new_slot: torch.Tensor,  # (M,) int32
+) -> None:
+    r"""The module's contract with torch ops on (M, F) planes."""
+    from bblean_tpu_torch.engine.batch import _drop_add_, _drop_set_, _flat2, _segment_sum
+
+    m, n_features = row_ls.shape
+    best_l = best_s.long()
+    # The promoted candidates' old singleton bits, read before any tile write
+    cand_bits = unpack_fingerprints_device(
+        t_pk[group[best_l].long(), pos[best_l].long()], n_features
+    ).to(_I32)
+    gj_full_ls = gj_ls[jseg.long()]
+    pool_created_ls = torch.where(join_ok[:, None], gj_full_ls, row_ls)
+
+    # Step 7: tile entries of the created clusters
+    created_ls = torch.where((join_ok & fits)[:, None], gj_full_ls, row_ls)
+    del gj_full_ls
+    c_cent = majority_centroid_from_sums(created_ls, created_n.clamp_min(1))
+    del created_ls
+    c_packed = pack_fingerprints_device(c_cent)
+    _drop_set_(_flat2(t_pk), cell, c_packed, create_commit)
+    _drop_set_(_flat2(t_pops), cell, c_cent.sum(-1, dtype=_I32), create_commit)
+    _drop_set_(_flat2(t_slot), cell, new_slot, create_commit)
+    del c_cent
+
+    # Step 8: promotions, adds and pooled creations, one writer a segment
+    seg_add_ls = _segment_sum(
+        torch.where(committed[:, None], row_ls[aorder], 0), agrp, m
+    )[agrp.long()]
+    _drop_set_(ls, ref_promo, cand_bits + seg_add_ls, promo)
+    _drop_add_(ls, cand_ref, seg_add_ls, adder)
+    _drop_set_(ls, ref_create, pool_created_ls, create_pool)
+
+
+def _check(tables: dict, rows: dict, m: int) -> torch.device:
+    r"""Raise unless every tensor is on one CUDA device, contiguous, of its
+    dtype and shape (``tables``: name -> (tensor, dtype, shape); ``rows``:
+    name -> tensor, of :data:`_ROW_INPUTS`'s dtype and shape (M,))."""
+    named = dict(tables)
+    named.update({k: (t, _ROW_INPUTS[k], (m,)) for k, t in rows.items()})
+    dev = named["ls"][0].device
+    for name, (t, dtype, shape) in named.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"commit-writes kernel needs every tensor on one CUDA device; "
+                f"{name} is on {t.device}, ls on {dev}"
+            )
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"commit-writes kernel: {name} must be {dtype} of shape {shape}, "
+                f"got {t.dtype} of shape {tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"commit-writes kernel: {name} must be contiguous")
+    return dev
+
+
+def _launch(ls, t_pk, t_pops, t_slot, group, pos, row_ls, gj_ls, *row_args) -> None:
+    global launches
+    if row_ls.dim() != 2 or ls.dim() != 2 or t_pk.dim() != 3:
+        raise ValueError("commit-writes kernel: row_ls and ls must be 2-d, t_pk 3-d")
+    m, f = row_ls.shape
+    g_cap, fc, f8 = t_pk.shape
+    rows = dict(zip(_ROW_INPUTS, row_args))
+    dev = _check(
+        {
+            "ls": (ls, _I32, (ls.shape[0], f)),
+            "t_pk": (t_pk, torch.uint8, (g_cap, fc, (f + 7) // 8)),
+            "t_pops": (t_pops, _I32, (g_cap, fc)),
+            "t_slot": (t_slot, _I32, (g_cap, fc)),
+            "group": (group, _I32, (group.shape[0],)),
+            "pos": (pos, _I32, (group.shape[0],)),
+            "row_ls": (row_ls, _I32, (m, f)),
+            "gj_ls": (gj_ls, _I32, (m, f)),
+        },
+        rows, m,
+    )
+    if m == 0 or f == 0 or min(ls.shape[0], g_cap, fc, group.shape[0]) == 0:
+        return  # nothing can be written: no launch
+    lib = _lib()
+    with torch.cuda.device(dev):
+        seg_target = torch.empty((m,), dtype=_I32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bb_commit_writes(
+            ls.data_ptr(), t_pk.data_ptr(), t_pops.data_ptr(), t_slot.data_ptr(),
+            group.data_ptr(), pos.data_ptr(), row_ls.data_ptr(), gj_ls.data_ptr(),
+            *(t.data_ptr() for t in rows.values()), seg_target.data_ptr(),
+            m, f, ls.shape[0], g_cap, fc, group.shape[0], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"commit-writes kernel launch failed: CUDA error {err}")
+    launches += 1
+
+
+def commit_writes(
+    ls: torch.Tensor,  # (P_cap, F) int32 pool, in place
+    t_pk: torch.Tensor,  # (G_cap, Fc, F8) uint8 tiles, in place
+    t_pops: torch.Tensor,  # (G_cap, Fc) int32, in place
+    t_slot: torch.Tensor,  # (G_cap, Fc) int32, in place
+    group: torch.Tensor,  # (C_cap,) int32
+    pos: torch.Tensor,  # (C_cap,) int32
+    row_ls: torch.Tensor,  # (M, F) int32, row order
+    gj_ls: torch.Tensor,  # (M, F) int32 joint creations' sums by segment
+    aorder: torch.Tensor,  # (M,) int64 sorted -> row
+    agrp: torch.Tensor,  # (M,) int32 segment of each sorted position
+    committed: torch.Tensor,  # (M,) bool, sorted
+    promo: torch.Tensor,  # (M,) bool, sorted
+    adder: torch.Tensor,  # (M,) bool, sorted
+    ref_promo: torch.Tensor,  # (M,) int32, sorted
+    cand_ref: torch.Tensor,  # (M,) int32, sorted
+    best_s: torch.Tensor,  # (M,) int32, sorted
+    jseg: torch.Tensor,  # (M,) int32 row -> gj_ls row
+    join_ok: torch.Tensor,  # (M,) bool
+    fits: torch.Tensor,  # (M,) bool
+    create_pool: torch.Tensor,  # (M,) bool
+    ref_create: torch.Tensor,  # (M,) int32
+    create_commit: torch.Tensor,  # (M,) bool
+    created_n: torch.Tensor,  # (M,) int32
+    cell: torch.Tensor,  # (M,) int32
+    new_slot: torch.Tensor,  # (M,) int32
+) -> None:
+    r"""Write the round's pool rows and tile cells (the module's contract)
+    into ``ls``, ``t_pk``, ``t_pops`` and ``t_slot`` in place.
+
+    Replaces ``bblean_tpu/engine/batch.py:572-579``, ``:660-684`` and
+    ``:686-723``.  On the card one call of ``bb_commit_writes``
+    (``csrc/commit_writes.cu``); on the CPU :func:`commit_writes_plain`.
+    """
+    args = (
+        ls, t_pk, t_pops, t_slot, group, pos, row_ls, gj_ls, aorder, agrp, committed,
+        promo, adder, ref_promo, cand_ref, best_s, jseg, join_ok, fits, create_pool,
+        ref_create, create_commit, created_n, cell, new_slot,
+    )
+    if ls.device.type == "cpu":
+        return commit_writes_plain(*args)
+    return _launch(*args)

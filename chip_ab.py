@@ -21,19 +21,23 @@ predicted slots and sims must be equal across runs.  A warm-up fit of
 50,000 rows per checkout comes first.  ``--profile`` then fits once more
 per checkout under ``torch.profiler`` (CUDA activity) and prints each
 fit's wall and device busy time, the launches and device ms of
-``torch.cumsum``'s outer-dimension scan and of the prefix-commit kernel
+``torch.cumsum``'s outer-dimension scan, of the prefix-commit kernel
 (with the sum of its calls' bounds from the rows each call's mask lets
 in, logged by ``chip_smoke._PrefixWork`` in one more fit, not profiled,
-so the log's small kernels stay out of the profile), its ten
+so the log's small kernels stay out of the profile) and of the leader
+election's and the pool and tile writes' kernels, its ten
 kernels of most device time, and the kernels whose device time differs
 most between the two; ``--cprofile`` fits once more per checkout
 under ``cProfile`` and prints the functions whose host time differs most;
 ``--events`` fits once more per checkout (ABBA) with CUDA events around
 each launch of the search and plan wrappers and prints their summed
-device time beside the fit's wall; ``--rounds`` times, in this checkout
-only, one insert round replayed as a CUDA graph against the same round
+device time beside the fit's wall; ``--rounds`` times, in each checkout
+(``OTHER_DIR`` first, where it is given), one insert round replayed as a CUDA graph against the same round
 dispatched op by op, at the wide (8,192) and narrow (2,048) widths
-(:func:`_round_walls`), before any fit; ``--dispatch`` fits this
+(:func:`_round_walls`), and each width's round once more, dispatched
+under the profiler, split by the stages of the round
+(:func:`_stage_split`: device ms per stage, and the bytes the round
+allocates), before any fit; ``--dispatch`` fits this
 checkout in turns with its programs replayed and with them dispatched
 (:func:`_graphs_against_dispatch`); ``--timers`` fits once more per checkout (ABBA)
 with host timers (inclusive wall) around the engine's step functions, its
@@ -169,6 +173,9 @@ def _profiled(label: str, tree_dir: str, dev_fps) -> dict:
         f"above bound {prefix_ms - bound:.1f} ms (with cand_ls read whole: bound "
         f"{bound_full:.1f} ms, above it {prefix_ms - bound_full:.1f} ms)"
     )
+    for label_k, names in (("leader election", cs.ELECTION_KERNELS), ("pool and tile writes", cs.WRITES_KERNELS)):
+        n, ms = kernels(*names)
+        cs.say(f"ab profiled {label}: {label_k} kernels {n} launches, {ms:.1f} device ms")
     for k in sorted(per, key=lambda k: -per[k])[:10]:
         cs.say(f"ab profiled {label} top kernel: {per[k]:.1f} ms, {count[k]} launches: {k[:160]}")
     return {
@@ -248,7 +255,7 @@ def _round_walls(tree_dir: str, dev_fps, reps: int = 40) -> dict:
     r"""One insert round replayed as a CUDA graph against the same round
     dispatched op by op (``engine/graphs.py``), at the wide width (8,192
     rows on the step's sorted plan) and the narrow one (2,048 compacted
-    rows on the per-row search), in this checkout.
+    rows on the per-row search), in the checkout under ``tree_dir``.
 
     The state is a t = 0.3 fit of 200,000 rows at the 1M settings, and the
     round inserts the next batch.  Before each timed round the tables and
@@ -329,6 +336,7 @@ def _round_walls(tree_dir: str, dev_fps, reps: int = 40) -> dict:
         pend0 = int(saved[1]["pending"].sum())
         med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
         out[kind] = {"pending_in": pend0, "pending_out": lefts.pop(), **{f"{k}_ms": v for k, v in med.items()}}
+        out[kind].update(_stage_split(kind, restore, lambda: engine._carry(bufs, fn(tables, bufs)), engine))
         cs.say(
             f"ab rounds: {kind} round (M {bufs['row_n'].shape[0] if kind == 'wide' else narrow}, "
             f"{pend0} rows pending in, {out[kind]['pending_out']} out): dispatched "
@@ -339,6 +347,108 @@ def _round_walls(tree_dir: str, dev_fps, reps: int = 40) -> dict:
     del tree, state, tables, saved
     torch.cuda.empty_cache()
     return out
+
+
+# Insert rounds of a 1M t = 0.3 fit (chip_smoke.py phase 4: its sorted and
+# per-row search launches) and the device ms its rounds' torch planes took
+# in the fit's profile before the round's election and writes were
+# kernels (PERF.md §5), for the shares of the stage split
+ROUNDS_PER_FIT = {"wide": 145, "narrow": 204}
+ROUND_PLANES_MS = 752.0
+
+
+def _stage_split(kind: str, restore, dispatch, engine) -> dict:
+    r"""One dispatched round under ``torch.profiler`` (CUDA activity), split
+    by the stages of ``engine._insert_round`` (``engine.ROUND_STAGES``):
+    while it runs, each stage boundary (``engine._Stages``) launches a
+    marker kernel (``torch.cuda._sleep``), and every kernel, copy and fill
+    on the device between one marker and the next counts to that stage, the
+    hand kernels (launched outside torch) included.  Per stage: device ms,
+    kernels, the three kernels of most device time and the bytes allocated
+    at the stage's peak above what was allocated before the round; the
+    round's whole device ms and peak.  Each stage's ms times the fit's rounds of this kind
+    (``ROUNDS_PER_FIT``) is printed beside its share of
+    ``ROUND_PLANES_MS``.  A checkout without the stages gives the whole
+    round only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marks: list = []
+    peaks: dict = {}
+    opened = ["before the first stage"]
+
+    def close(name: str) -> None:
+        # The stage that ends here: its peak allocation above the round's start
+        peaks[opened[0]] = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        opened[0] = name
+
+    class Marked:
+        def __call__(self, name: str) -> None:
+            close(name)
+            marks.append(name)
+            torch.cuda._sleep(1)
+
+        def end(self) -> None:
+            close("after the round")
+            marks.append("after the round")
+            torch.cuda._sleep(1)
+
+    staged = hasattr(engine, "_Stages")
+    restore()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    if staged:
+        plain_stages, engine._Stages = engine._Stages, Marked
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dispatch()
+            torch.cuda.synchronize()
+    finally:
+        if staged:
+            engine._Stages = plain_stages
+    close("")
+    peak = max(peaks.values())
+    events = sorted(
+        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start,
+    )
+    names = iter(marks)
+    cur = "before the first stage"
+    stages: dict = {}
+    for e in events:
+        if "spin_kernel" in e.name:
+            cur = next(names)
+            continue
+        v = stages.setdefault(cur, {}).setdefault(e.name, [0, 0.0])
+        v[0] += 1
+        v[1] += e.time_range.elapsed_us() / 1e3
+    if staged and len(marks) != len(engine.ROUND_STAGES) + 1:
+        raise AssertionError(f"the round marked the stages {marks}")
+    device = sum(v[1] for ks in stages.values() for v in ks.values())
+    split = {}
+    for name in (*getattr(engine, "ROUND_STAGES", ()), "before the first stage", "after the round"):
+        ks = stages.get(name, {})
+        ms = sum(v[1] for v in ks.values())
+        top = sorted(ks.items(), key=lambda kv: -kv[1][1])[:3]
+        split[name] = {
+            "device_ms": ms, "kernels": sum(v[0] for v in ks.values()),
+            "peak_bytes": peaks.get(name, 0),
+            "fit_ms": ms * ROUNDS_PER_FIT[kind],
+            "top": [(k[:90], n, ms_k) for k, (n, ms_k) in top],
+        }
+    cs.say(
+        f"ab rounds split: {kind} round dispatched, device {device:.4f} ms, peak allocated "
+        f"{peak / 2**20:.1f} MiB above the {base / 2**30:.3f} GiB before it; x "
+        f"{ROUNDS_PER_FIT[kind]} {kind} rounds a 1M t=0.3 fit:"
+    )
+    for name, v in split.items():
+        cs.say(
+            f"  {name}: {v['device_ms']:.4f} ms, {v['kernels']} kernels, peak allocated "
+            f"{v['peak_bytes'] / 2**20:.1f} MiB; a fit {v['fit_ms']:.1f} ms "
+            f"({v['fit_ms'] / ROUND_PLANES_MS:.3f} of {ROUND_PLANES_MS:.0f}); "
+            + ", ".join(f"{k} x{n} {ms:.4f}" for k, n, ms in v["top"])
+        )
+    return {"device_ms": device, "peak_bytes": peak, "stages": split}
 
 
 def _graphs_against_dispatch(dev_fps, order: str = "RDDRRDDR") -> dict:
@@ -438,7 +548,7 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true", help="one profiled fit per checkout")
     ap.add_argument("--cprofile", action="store_true", help="one cProfile'd fit per checkout")
     ap.add_argument("--events", action="store_true", help="fits (ABBA) with events per launch")
-    ap.add_argument("--rounds", action="store_true", help="a replayed round against a dispatched one (this checkout)")
+    ap.add_argument("--rounds", action="store_true", help="a replayed round against a dispatched one, and its stages")
     ap.add_argument("--timers", action="store_true", help="fits (ABBA) with host timers")
     ap.add_argument("--dispatch", action="store_true", help="fits of this checkout, replayed against dispatched")
     args = ap.parse_args()
@@ -457,7 +567,10 @@ def main() -> None:
     )
     dev_fps = torch.from_numpy(fps).to("cuda")
     queries = fps[:131_072]
-    rounds = _round_walls(ROOT, dev_fps) if args.rounds else {}
+    rounds = {}
+    for label in ("AB" if args.other else "B") if args.rounds else "":
+        cs.say(f"ab rounds of {label}: {trees[label]}")
+        rounds[label] = _round_walls(trees[label], dev_fps)
     dispatch = _graphs_against_dispatch(dev_fps) if args.dispatch else {}
     for label in "AB" if fits else "":
         BatchTree, _engine, _ts = _use(trees[label])

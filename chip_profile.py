@@ -28,7 +28,10 @@ device: a marker kernel is launched as each window is dispatched, and a
 window's period runs from its marker to the next.  Launches inside
 replayed CUDA graphs (``engine/graphs.py``) are recorded from the capture's
 inputs after each replay.  ``--out`` writes the per-launch and per-window
-numbers to a JSON file.  Imports no JAX.
+numbers to a JSON file.  The leader election's and the pool and tile
+writes' kernels (``csrc/leader_election.cu``, ``csrc/commit_writes.cu``,
+one call a round, two launches a call) get their calls and device ms per
+fit.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -174,6 +177,8 @@ def main() -> None:
             f"(time - bound) = {s['above_bound_ms']:.3f} ms"
         )
     summary["prefix-commit"] = _prefix_summary(events, logged)
+    summary["leader-election"] = _round_kernel_summary(events, "leader election", cs.ELECTION_KERNELS)
+    summary["commit-writes"] = _round_kernel_summary(events, "pool and tile writes", cs.WRITES_KERNELS)
     cs.say(
         f"profile: profiled fit {prof_wall:.3f} s wall, device busy {busy_ms:.3f} ms "
         f"({busy_ms / 1e3 / prof_wall:.3f} of the wall); tile-search kernels "
@@ -246,6 +251,24 @@ def _prefix_summary(events, prefix) -> dict:
         for k, v in out["calls"].items()
     ))
     cs.say(f"profile prefix-commit traffic: {prefix.traffic_text()}")
+    return out
+
+
+def _round_kernel_summary(events, label: str, names: tuple[str, ...]) -> dict:
+    r"""A kernel of one call a round with two launches a call (``names``,
+    in launch order) in the profiled fit: its calls, their device ms per
+    fit and a call's mean, and each launch's device ms."""
+    by = {n: [e for e in events if n in e.name] for n in names}
+    calls = len(by[names[0]])
+    if any(len(v) != calls for v in by.values()):
+        raise AssertionError(f"{label}: launches {[len(v) for v in by.values()]} are not one of each a call")
+    per = {n: sum(e.time_range.elapsed_us() for e in v) / 1e3 for n, v in by.items()}
+    ms = sum(per.values())
+    out = {"calls": calls, "device_ms": ms, "mean_ms": ms / max(calls, 1), "by_kernel_ms": per}
+    cs.say(
+        f"profile {label}: {calls} calls ({len(names)} launches each), {ms:.3f} device ms per fit "
+        f"({out['mean_ms']:.4f} ms a call; " + ", ".join(f"{n} {v:.3f} ms" for n, v in per.items()) + ")"
+    )
     return out
 
 

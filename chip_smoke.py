@@ -41,9 +41,26 @@ as the phase ends:
    counted; each 2048-bit case at the engine's block of 1,024 with the
    kernel's time (profiler), its time per call (events), the plain
    version's time, ``torch._int_mm`` over the same live blocks (the
-   product alone, the library yardstick), the bound and the share.
-   ``python3 chip_smoke.py --only kernels`` runs phases 1, 2, 2b, 2c and
-   2d alone;
+   product alone, the library yardstick), the bound and the share;
+2e. the prefix-commit kernel (``ops/prefix_commit.py`` over
+   ``csrc/prefix_commit.cu``) bit-equal to its plain version, moments and
+   accept masks, for the round's three calls and all six criteria
+   (:func:`phase_prefix_commit`), and the look-back's stress cases;
+2f. the leader-election kernel (``ops/leader_election.py`` over
+   ``csrc/leader_election.cu``) bit-equal to its plain version in every
+   layout of ``ELECTION_LAYOUTS`` at 8,192 and 2,048 rows (the first
+   batch's single group of every row, a t = 0.3-like spread of groups,
+   ties, rows struck twice, no rejected row), with the step's sims and
+   plan, with sims alone and from the packed rows, and on ``REPLAYS``
+   replays of a captured call (:func:`phase_election`);
+2g. the pool and tile writes' kernel (``ops/commit_writes.py`` over
+   ``csrc/commit_writes.cu``) bit-equal to its plain version, every table,
+   in every layout of ``WRITES_LAYOUTS`` at 8,192 and 2,048 rows (merge
+   segments of thousands of rows, the vote's edge, writes past capacity,
+   the guard row) and on ``REPLAYS`` replays of a captured call
+   (:func:`phase_writes`); 2e-2g timed as 2d is, over copies of their
+   inputs taken in turn (4x the L2).
+   ``python3 chip_smoke.py --only kernels`` runs phases 1 and 2-2g alone;
 3. the port on the CPU (plain search) and on the card (kernels) give the
    same labels for 20,000 fingerprints after the fit, a shuffled
    recluster and a refine, and the same predicted slots and sims for
@@ -60,7 +77,9 @@ as the phase ends:
    memory beside the peak before the rounds were graphed, and in the
    t = 0.3 fit one sampled replay of a wide round and one of a narrow
    round are held bit-equal (every output and table) to the same round
-   dispatched on a clone of the state;
+   dispatched on a clone of the state, whose calls of the prefix commits,
+   the leader election and the pool and tile writes are then held to
+   their plain versions and timed (the kernels line's records);
 5. on the t = 0.3 tree of phase 4: ``predict_packed`` of 131,072 queries
    through the sorted kernel (batch 8192) and the per-row kernel (batch
    1000), identical and equal to a float64 Tanimoto against the packed
@@ -152,15 +171,18 @@ as the phase ends:
 Each main-path run (each fit, each predict, the refine, each command-line
 run, each merge) counts the kernels' launches from zero and must launch the
 kernels it runs (the route in every fit, predict, refine and command-line
-run, the route's twin in every merge of phase 8 b; none on a generic path,
-every route and twin launch on the TMA path);
-the plain search, route and twin must never see CUDA tensors.  Phase 4's
+run, the route's twin in every merge of phase 8 b, the prefix commits, the
+leader election and the pool and tile writes wherever rows are inserted;
+none on a generic path, every route and twin launch on the TMA path);
+no plain version may see CUDA tensors.  Phase 4's
 fits and phase 8 b's fits and merges hold sampled launches of the route
 and twin bit-equal to the plain versions on their own inputs and print
 their average shapes.  The line before the last is a JSON object with each
-kernel's launches, error, times, bound, share and library yardstick at the
-shape the fits give it (the "fit" cases of phases 2, 2b, 2c and 2d; the
-merge case of 2d for the twin); the last line is
+of the eight kernels' launches, error, times, bound, share and library
+yardstick at the shape the fits give it (the "fit" cases of phases 2, 2b,
+2c and 2d; the merge case of 2d for the twin; a wide round of phase 4's
+t = 0.3 fit for the prefix commits, the leader election and the writes);
+the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero without a result.
 """
@@ -323,7 +345,9 @@ def phase_device() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     from bblean_tpu_torch import _build
-    from bblean_tpu_torch.ops import prefix_commit, route, tile_search
+    from bblean_tpu_torch.ops import (
+        commit_writes, leader_election, prefix_commit, route, tile_search,
+    )
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -332,14 +356,17 @@ def phase_device() -> str:
     ).stdout.strip()
     # One nvcc for each source, all started together
     t0 = time.perf_counter()
-    kernels = (tile_search, route, prefix_commit)
+    kernels = (tile_search, route, prefix_commit, leader_election, commit_writes)
     with ThreadPoolExecutor(len(kernels)) as pool:
         for built in [pool.submit(m._lib) for m in kernels]:
             built.result()
     built = time.perf_counter() - t0
     secs = ", ".join(
         f"{src} {_build.build_seconds[src]:.2f} s"
-        for src in ("tile_search.cu", "route.cu", "prefix_commit.cu")
+        for src in (
+            "tile_search.cu", "route.cu", "prefix_commit.cu", "leader_election.cu",
+            "commit_writes.cu",
+        )
     )
     say(
         f"phase 1 device: {name} | torch {torch.__version__} "
@@ -1213,21 +1240,38 @@ def _prefix_stress(rng, kind: str) -> str:
     )
 
 
-def _rotation(args: tuple) -> list[tuple]:
-    r"""Copies of one call's arguments on the card, enough that their
-    tables (``row_ls`` and ``cand_ls``) take four times the L2 together:
-    a timed call that takes the next copy each time reads its tables from
-    HBM, as the bound assumes (2 copies at M = 8192, 7 at M = 2048)."""
-    n = max(2, -(-4 * L2_BYTES // (2 * args[1].numel() * 4)))
-    return [
-        tuple(a.to("cuda", copy=True) if isinstance(a, torch.Tensor) else a for a in args)
-        for _ in range(n)
-    ]
+def _copies(args: tuple, big: int) -> list[tuple]:
+    r"""Copies of one call's arguments on the card, enough that ``big``
+    bytes of its inputs a copy take four times the L2 together (at least
+    two; the prefix commits' tables ``row_ls`` and ``cand_ls``: 2 copies at
+    M = 8192, 7 at M = 2048): a timed call that takes the next copy each
+    time reads its inputs from HBM, as the bound assumes."""
+    n = max(2, -(-4 * L2_BYTES // max(big, 1)))
+
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.to("cuda", copy=True)
+        if isinstance(a, tuple):
+            return tuple(copy(x) for x in a)
+        return a
+
+    return [copy(args) for _ in range(n)]
+
+
+def _in_turn(copies: list):
+    r"""A function that returns the next of ``copies`` at each call."""
+    turn = [0]
+
+    def take():
+        turn[0] += 1
+        return copies[turn[0] % len(copies)]
+
+    return take
 
 
 def _time_prefix(args: tuple) -> dict:
     r"""One call of the prefix commits timed (``_time_case``) over copies
-    of its arguments taken in turn (``_rotation``), beside the bound for
+    of its arguments taken in turn (``_copies`` of its tables), beside the bound for
     this call's rows (``_prefix_bound``: ``cand_ls`` for the needed rows,
     ``row_ls`` for the rows the result depends on) and the bound that
     charges ``cand_ls`` whole and ``row_ls`` for the rows in the mask
@@ -1237,12 +1281,8 @@ def _time_prefix(args: tuple) -> dict:
     from bblean_tpu_torch.ops import prefix_commit as pc
     from bblean_tpu_torch.ops.merges import moment_count
 
-    copies = _rotation(args)
-    turn = [0]
-
-    def take() -> tuple:
-        turn[0] += 1
-        return copies[turn[0] % len(copies)]
+    copies = _copies(args, 2 * args[1].numel() * 4)
+    take = _in_turn(copies)
 
     criterion, row_ls, seg_start, need = args[0], args[1], args[7], args[8]
     m, f = row_ls.shape
@@ -1271,8 +1311,541 @@ def _prefix_timing_text(t: dict) -> str:
     )
 
 
+# Phase 2f: the leader election's layouts (``election_case``), its
+# threshold (the fit's t = 0.3), the kernel's two launches as the profiler
+# names them and the graph replays of one case
+ELECTION_LAYOUTS = ("one group", "t=0.3 groups", "ties", "force lead", "none rejected")
+ELECTION_THRESHOLD = 0.3
+ELECTION_KERNELS = ("election_leads_kernel", "election_argmax_kernel")
+# Phase 2g: the pool and tile writes' layouts (``commit_writes_case``) and
+# the kernel's two launches; both phases replay one case this many times
+WRITES_LAYOUTS = ("t=0.3 runs", "one segment", "singletons", "edges")
+WRITES_KERNELS = ("writes_sets_kernel", "writes_adds_tiles_kernel")
+REPLAYS = 20
+
+
+def election_case(rng, m: int, f: int, layout: str) -> tuple:
+    r"""numpy inputs of one round's leader election: (rejected, force_lead,
+    row_group, valid, row_pk, row_pop).  ``layout`` is one of
+    ``ELECTION_LAYOUTS``: "one group" (every row on group 0 and rejected:
+    a fit's first batch), "t=0.3 groups" (M / 5 groups drawn with weights
+    1 / rank^1.5: about 1,600 at M = 8192, a few of hundreds of rows, most
+    of one or two, as a mid-fit round), "ties" (every row a copy of one of
+    three prototypes of its group: duplicate rows and equal sims), "force
+    lead" (40% of the rejected rows struck twice), "none rejected".  Rows
+    are noisy copies of their group's prototype (25% of bits set, 0-30% of
+    them flipped), so that sims fall on both sides of the threshold; 3% of
+    the rows are padding (not valid, routed to group 0 as the route leaves
+    them), 60% of the valid rows rejected, 5% of those struck twice."""
+    if layout == "one group":
+        k, group = 1, np.zeros(m, np.int64)
+    elif layout == "t=0.3 groups":
+        k = max(1, m // 5)
+        w = 1.0 / np.arange(1, k + 1) ** 1.5
+        group = rng.choice(k, m, p=w / w.sum())
+    else:
+        k = max(1, m // 16)
+        group = rng.integers(0, k, m)
+    if layout == "ties":
+        protos = rng.random((k, 3, f)) < 0.25
+        bits = protos[group, rng.integers(0, 3, m)]
+    else:
+        protos = rng.random((k, f)) < 0.25
+        flip = rng.random((m, f)) < rng.random(m)[:, None] * 0.3
+        bits = protos[group] ^ (flip & (rng.random((m, f)) < 0.5))
+    valid = np.ones(m, bool) if layout == "one group" else rng.random(m) < 0.97
+    group = np.where(valid, group, 0)
+    if layout == "one group":
+        rejected = valid.copy()
+    elif layout == "none rejected":
+        rejected = np.zeros(m, bool)
+    else:
+        rejected = valid & (rng.random(m) < 0.6)
+    force = rejected & (rng.random(m) < (0.4 if layout == "force lead" else 0.05))
+    return (
+        rejected, force, group.astype(np.int32), valid, np.packbits(bits, axis=1),
+        bits.sum(1).astype(np.int32),
+    )
+
+
+def election_args(case: tuple, device, wide: bool, plan: bool | None = None) -> tuple:
+    r"""The arguments of ``elect_leaders`` on ``device`` for ``case``
+    (``election_case``'s arrays) as a round passes them: a wide round the
+    step's row sims (``tanimoto_gram`` of the rows) and, with ``plan``
+    (default: wide), the step's sort plan (the valid rows by group, padding
+    rows on a guard key); a narrow round the packed rows and popcounts."""
+    from bblean_tpu_torch.ops.leader_election import tanimoto_gram
+    from bblean_tpu_torch.ops.packing import unpack_fingerprints_device
+
+    rejected, force, group, valid, row_pk, row_pop = (torch.from_numpy(a).to(device) for a in case)
+    threshold = torch.tensor(ELECTION_THRESHOLD, dtype=torch.float32, device=device)
+    sims = pk = pop = order_skey = None
+    if wide:
+        sims = tanimoto_gram(unpack_fingerprints_device(row_pk).to(torch.int8), row_pop)
+    else:
+        pk, pop = row_pk, row_pop
+    if wide if plan is None else plan:
+        skey, order = torch.sort(torch.where(valid, group, 1 << 30), stable=True)
+        order_skey = (order, skey)
+    return rejected, force, group, threshold, sims, pk, pop, order_skey
+
+
+def election_pairs(rejected: np.ndarray, group: np.ndarray) -> int:
+    r"""The pairs (j, i) an election's result depends on: i < j, i
+    rejected, both on one group."""
+    order = np.argsort(group, kind="stable")
+    g, r = group[order], rejected[order].astype(np.int64)
+    starts = np.r_[True, g[1:] != g[:-1]]
+    excl = np.cumsum(r) - r
+    return int((excl - np.maximum.accumulate(np.where(starts, excl, 0))).sum())
+
+
+def _election_bound(args: tuple) -> dict:
+    r"""The least time for one election: the sims of the counted pairs
+    (``election_pairs``, 4 B each) or, without sims, the rejected rows'
+    packed bits read once; the flags, groups, sort plan and popcounts read
+    and the three (M,) outputs written once, over 3.35 TB/s.  The
+    comparisons (and the popcounts) are far below the bytes."""
+    rejected, group, sims, pk = args[0], args[2], args[4], args[5]
+    m = rejected.shape[0]
+    rej = rejected.cpu().numpy()
+    pairs = election_pairs(rej, group.cpu().numpy())
+    n_bytes = m * (1 + 1 + 4 + 8 + 4) + m * (1 + 4 + 4)
+    if sims is not None:
+        n_bytes += 4 * pairs
+    else:
+        n_bytes += int(rej.sum()) * pk.shape[1] + 4 * m
+    return {
+        "work": f"M={m} ({int(rej.sum())} rejected, {pairs} pairs{'' if sims is not None else ', packed rows'})",
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "pairs": pairs,
+    }
+
+
+def _election_equal(got: tuple, ref: tuple) -> bool:
+    r"""leads, lead_of and best_lead_sim equal bit for bit."""
+    return (
+        torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        and torch.equal(got[2].view(torch.int32), ref[2].view(torch.int32))
+    )
+
+
+def _time_election(args: tuple) -> dict:
+    r"""One election timed (``_time_case``) over copies of its arguments in
+    turn, beside its bound (``_election_bound``); no PyTorch call computes
+    this function (library: none)."""
+    from bblean_tpu_torch.ops import leader_election as le
+
+    sims, pk = args[4], args[5]
+    big = sims.numel() * 4 if sims is not None else pk.numel()
+    copies = _copies(args, big)
+    take = _in_turn(copies)
+    t = _time_case(
+        lambda: le.elect_leaders(*take()), lambda: le.elect_leaders_plain(*take()),
+        _election_bound(args), name=ELECTION_KERNELS,
+    )
+    t["library_ms"] = None
+    t["copies"] = len(copies)
+    return t
+
+
+def _election_check(args: tuple, where: str) -> None:
+    r"""The kernel's outputs equal the plain version's, one launch."""
+    from bblean_tpu_torch.ops import leader_election as le
+
+    before = le.launches
+    got = le.elect_leaders(*args)
+    ref = le.elect_leaders_plain(*args)
+    torch.cuda.synchronize()
+    if le.launches != before + 1:
+        raise AssertionError(f"{where}: launches {before} -> {le.launches}")
+    if not _election_equal(got, ref):
+        raise AssertionError(f"{where}: leads, lead_of or best_lead_sim differ from the plain version's")
+
+
+def _election_replays(args: tuple) -> None:
+    r"""One election captured in a CUDA graph, replayed ``REPLAYS`` times
+    over outputs spoiled before each: each equal to the plain version."""
+    from bblean_tpu_torch.ops import leader_election as le
+
+    ref = le.elect_leaders_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        le.elect_leaders(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = le.elect_leaders(*args)
+    for k in range(REPLAYS):
+        out[0].fill_(True)
+        out[1].fill_(-7)
+        out[2].fill_(9.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not _election_equal(out, ref):
+            raise AssertionError(f"phase 2f graph replay {k}: the election differs from the plain version's")
+
+
+def phase_election() -> dict:
+    r"""Phase 2f: the leader-election kernel (``ops/leader_election.py``,
+    ``csrc/leader_election.cu``) bit-equal to its plain version (leads,
+    lead_of, best_lead_sim) in every layout of ``ELECTION_LAYOUTS`` at the
+    wide rounds' 8,192 rows and the narrow rounds' 2,048, 2048 bits: with
+    the step's sims and sort plan (a wide round), with sims and no plan
+    (the wrapper sorts), and from the packed rows (a narrow round, at
+    2,048 rows); then ``REPLAYS`` replays of a captured wide call.  Timed
+    on the t = 0.3-like layout, wide at 8,192 and narrow at 2,048 rows,
+    over copies of the inputs in turn (4x the L2).  The kernels line's
+    record is timed on a round of the fit (phase 4)."""
+    rng = np.random.default_rng(31)
+    timing = {}
+    replay = None
+    for m in (8192, 2048):
+        for layout in ELECTION_LAYOUTS:
+            case = election_case(rng, m, N_FEATURES, layout)
+            modes = {"wide": (True, True), "wide without plan": (True, False)}
+            if m == 2048:
+                modes["narrow"] = (False, False)
+            for mode, (wide, plan) in modes.items():
+                args = election_args(case, "cuda", wide, plan)
+                _election_check(args, f"phase 2f M={m} {layout} {mode}")
+                if layout == "t=0.3 groups" and mode == ("wide" if m == 8192 else "narrow"):
+                    t = timing[f"M={m} {mode}"] = _time_election(args)
+                    say(f"phase 2f {mode} M={m} {layout}" + _timing_text(t) + f"; over {t['copies']} copies")
+                if layout == "t=0.3 groups" and m == 8192 and mode == "wide":
+                    replay = args
+            say(
+                f"phase 2f leader election == plain: M={m} F={N_FEATURES} {layout} "
+                f"({int(case[0].sum())} rejected, {len(np.unique(case[2][case[0]]))} groups with "
+                f"rejected rows, {election_pairs(case[0], case[2])} pairs), "
+                f"{', '.join(modes)}"
+            )
+    _election_replays(replay)
+    say(f"phase 2f leader election == plain on {REPLAYS} replays of a captured wide call")
+    return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
+
+
+# The arguments of ``commit_writes`` in order: the tables it updates in
+# place, then what it reads
+WRITES_TABLES = ("ls", "t_pk", "t_pops", "t_slot")
+WRITES_ARGS = WRITES_TABLES + (
+    "group", "pos", "row_ls", "gj_ls", "aorder", "agrp", "committed", "promo", "adder",
+    "ref_promo", "cand_ref", "best_s", "jseg", "join_ok", "fits", "create_pool",
+    "ref_create", "create_commit", "created_n", "cell", "new_slot",
+)
+
+
+def commit_writes_case(rng, m: int, f: int, layout: str) -> dict:
+    r"""numpy arguments of one round's pool and tile writes
+    (``WRITES_ARGS``), consistent as the round makes them.  Tables: a pool
+    of 3M + 2 rows (the first M live, the last the guard, set to -7), tiles
+    of Fc = 256 cells (16 where M <= 256) on 2M / Fc + 2 groups, 2M + 2
+    cluster slots.  Rows: sums of 1-4 members.  Merge side as
+    ``prefix_commit_case``'s keys for ``layout`` ("t=0.3 runs": segments
+    of up to thousands of rows; "one segment"; "singletons"; "edges": the
+    first with the edges below): 75% of the rows accepted (all in the
+    last two), 85% of those committed, each segment's writer its first
+    committed row, a promotion where its cluster is a singleton (40% of the
+    keys, 70% for "singletons"), else an adder onto the key's own live pool
+    row.  Creation side: 35% of the rows create, 90% of them committed;
+    joint sums of 1-8 members by segment (M / 4 of them), 60% cohesive, 85%
+    fitting their tile; pooled where their count is 2 or more (95% kept),
+    pool rows allocated after the promotions, cells distinct outside the
+    guard group.  "edges" adds: sums at the vote's edge (2 s == n) in 30% of
+    the created rows' columns, counts of 0 and 1 with sums of 2-3 (the
+    ``n <= 1`` rule), and writes past capacity (promotions, adders, pooled
+    creations, cells)."""
+    f8 = (f + 7) // 8
+    fc = 16 if m <= 256 else 256
+    p_cap, c_cap, g_cap = 3 * m + 2, 2 * m + 2, 2 * m // fc + 2
+    i32 = np.int32
+    q = np.where(rng.random(f) < 0.25, 0.85, 0.04)
+    row_n = rng.integers(1, 5, m)
+    row_ls = rng.binomial(row_n[:, None], q, (m, f))
+    # Merge side, in the sorted order of the round's candidate keys
+    k = m if layout == "singletons" else max(1, m // 8)
+    if layout == "singletons":
+        key = rng.permutation(m)
+    elif layout == "one segment":
+        key = np.zeros(m, np.int64)
+    else:
+        w = 1.0 / np.arange(1, k + 1) ** 1.5
+        key = rng.choice(k, m, p=w / w.sum())
+    accept = np.ones(m, bool) if layout in ("singletons", "one segment") else rng.random(m) < 0.75
+    akey = np.where(accept, key, 1 << 30)
+    aorder = np.argsort(akey, kind="stable")
+    sk = akey[aorder]
+    starts = np.r_[True, sk[1:] != sk[:-1]]
+    agrp = np.cumsum(starts) - 1
+    acc_s = accept[aorder]
+    committed = acc_s & (rng.random(m) < 0.85)
+    cum = np.cumsum(committed)
+    excl = cum - committed
+    run = cum - np.maximum.accumulate(np.where(starts, excl, 0))
+    writer = committed & (run == 1)
+    single = rng.random(k) < (0.7 if layout == "singletons" else 0.4)
+    cand_ref_key = np.where(single, -1, rng.permutation(m)[:k])
+    best_key = rng.permutation(c_cap - 1)[:k]
+    ks = np.where(acc_s, sk, 0)
+    cand_ref = np.where(acc_s, cand_ref_key[ks], rng.integers(-1, m, m))
+    best_s = np.where(acc_s, best_key[ks], rng.integers(0, c_cap - 1, m))
+    promo = writer & (cand_ref < 0)
+    adder = writer & (cand_ref >= 0)
+    num_ls = m
+    ref_promo = num_ls + np.cumsum(promo) - 1
+    # Creation side, in row order
+    creator = rng.random(m) < 0.35
+    jseg = rng.integers(0, m // 4 + 1, m)
+    gj_n = rng.integers(1, 9, m)
+    gj_ls = rng.binomial(gj_n[:, None], q, (m, f))
+    join_ok = rng.random(m) < 0.6
+    fits = rng.random(m) < 0.85
+    pool_n = np.where(join_ok, gj_n[jseg], row_n)
+    create_pool_try = creator & (pool_n >= 2)
+    ref_create = num_ls + promo.sum() + np.cumsum(create_pool_try) - 1
+    create_commit = creator & (rng.random(m) < 0.9)
+    create_pool = create_pool_try & (rng.random(m) < 0.95)
+    created_n = np.where(join_ok & fits, gj_n[jseg], row_n)
+    cell = rng.permutation((g_cap - 1) * fc)[:m]
+    new_slot = m + np.cumsum(create_commit) - 1
+    if layout == "edges":
+        own = create_commit & ~(join_ok & fits)
+        even = own & (row_n % 2 == 0)
+        cols = rng.random((m, f)) < 0.3
+        row_ls = np.where(even[:, None] & cols, row_n[:, None] // 2, row_ls)
+        small = np.flatnonzero(own & (row_n == 1))[:6]
+        row_ls[small[:3], :8] = np.array([0, 1, 2, 3, 0, 2, 1, 3])
+        created_n[small[3:]] = 0
+        row_ls[small[3:], :8] = np.array([3, 0, 1, 2, 0, 0, 2, 1])
+        for mask, ref, over in ((promo, ref_promo, p_cap), (adder, cand_ref, p_cap),
+                                (create_pool, ref_create, p_cap), (create_commit, cell, g_cap * fc)):
+            at = np.flatnonzero(mask)[-3:]
+            ref[at] = over + np.arange(len(at))
+    ls = rng.integers(0, 50, (p_cap, f))
+    ls[-1] = -7
+    t_pk = rng.integers(0, 256, (g_cap, fc, f8), dtype=np.uint8)
+    out = dict(
+        ls=ls.astype(i32), t_pk=t_pk,
+        t_pops=rng.integers(0, f, (g_cap, fc)).astype(i32),
+        t_slot=rng.integers(-1, c_cap, (g_cap, fc)).astype(i32),
+        group=rng.integers(0, g_cap - 1, c_cap).astype(i32),
+        pos=rng.integers(0, fc, c_cap).astype(i32),
+        row_ls=row_ls.astype(i32), gj_ls=gj_ls.astype(i32), aorder=aorder.astype(np.int64),
+        agrp=agrp.astype(i32), committed=committed, promo=promo, adder=adder,
+        ref_promo=ref_promo.astype(i32), cand_ref=cand_ref.astype(i32), best_s=best_s.astype(i32),
+        jseg=jseg.astype(i32), join_ok=join_ok, fits=fits, create_pool=create_pool,
+        ref_create=ref_create.astype(i32), create_commit=create_commit,
+        created_n=created_n.astype(i32), cell=cell.astype(i32), new_slot=new_slot.astype(i32),
+    )
+    return out
+
+
+def writes_args(case: dict, device) -> tuple:
+    r"""``commit_writes``'s arguments (``WRITES_ARGS``) for ``case`` on
+    ``device``: fresh tables each call."""
+    return tuple(torch.from_numpy(np.array(case[k], copy=True)).to(device) for k in WRITES_ARGS)
+
+
+def _writes_reads(args: tuple) -> dict:
+    r"""What one call must move, counted from its arguments: rows read
+    (committed rows, joint sums, own sums of pooled or created rows), pool
+    rows written and read (the adders), promoted cells read, tile cells
+    written.  A write past a table's capacity moves nothing."""
+    big = WRITES_TABLES + ("group", "pos", "row_ls", "gj_ls")
+    a = {k: x.cpu().numpy() for k, x in zip(WRITES_ARGS, args) if k not in big}
+    m = args[WRITES_ARGS.index("row_ls")].shape[0]
+    p_cap = args[0].shape[0]
+    n_cells = args[1].shape[0] * args[1].shape[1]
+    seg_t = np.full(m, -1)
+    writer = a["promo"] | a["adder"]
+    tgt = np.where(a["promo"], a["ref_promo"], a["cand_ref"])
+    ok_w = writer & (tgt >= 0) & (tgt < p_cap)
+    seg_t[a["agrp"][ok_w]] = tgt[ok_w]
+    adds = a["committed"] & (seg_t[a["agrp"]] >= 0)
+    pooled = a["create_pool"] & (a["ref_create"] >= 0) & (a["ref_create"] < p_cap)
+    tiles = a["create_commit"] & (a["cell"] >= 0) & (a["cell"] < n_cells)
+    joint_rows = set(a["jseg"][pooled & a["join_ok"]]) | set(a["jseg"][tiles & a["join_ok"] & a["fits"]])
+    own_rows = (pooled & ~a["join_ok"]) | (tiles & ~(a["join_ok"] & a["fits"]))
+    return {
+        "committed": int(adds.sum()), "joint": len(joint_rows), "own": int(own_rows.sum()),
+        "promo": int((ok_w & a["promo"]).sum()), "adder": int((ok_w & a["adder"]).sum()),
+        "pooled": int(pooled.sum()), "tiles": int(tiles.sum()),
+    }
+
+
+def _writes_bound(args: tuple) -> dict:
+    r"""The least time for one call of the writes: the committed rows'
+    sums, the joint sums and the own sums it copies or votes read once,
+    each written pool row written once (an adder's read too), each
+    promoted candidate's cell read, 256 B + 8 B a written tile cell, and
+    the (M,) inputs read once, over 3.35 TB/s.  The vote and the adds are
+    a few operations a column, far below the bytes."""
+    r = _writes_reads(args)
+    m, f = args[WRITES_ARGS.index("row_ls")].shape
+    f8 = (f + 7) // 8
+    row = 4 * f
+    n_bytes = (
+        (r["committed"] + r["joint"] + r["own"]) * row
+        + (r["promo"] + 2 * r["adder"] + r["pooled"]) * row
+        + r["promo"] * f8 + r["tiles"] * (f8 + 8)
+        + m * (8 + 10 * 4 + 7)
+    )
+    return {
+        "work": (
+            f"M={m} ({r['committed']} committed rows into {r['promo']} promotions + "
+            f"{r['adder']} adders, {r['pooled']} pooled creations, {r['tiles']} tile cells)"
+        ),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+
+
+def _writes_library(args: tuple):
+    r"""The library yardstick's call: ``ls.index_add_`` of the committed
+    rows of the adders' segments into their pool rows (the adders' part of
+    the writes alone), on ``args``' tensors, its source rows gathered
+    beforehand; returns a function that makes the call on a given pool."""
+    a = dict(zip(WRITES_ARGS, args))
+    m = a["row_ls"].shape[0]
+    p_cap = a["ls"].shape[0]
+    seg_t = torch.full((m,), -1, dtype=torch.int32, device=a["ls"].device)
+    ok = a["adder"] & (a["cand_ref"] >= 0) & (a["cand_ref"] < p_cap)
+    seg_t[a["agrp"][ok].long()] = a["cand_ref"][ok]
+    t = seg_t[a["agrp"].long()]
+    pick = a["committed"] & (t >= 0)
+    idx = t[pick].long()
+    src = a["row_ls"][a["aorder"][pick]]
+    return lambda ls: ls.index_add_(0, idx, src)
+
+
+def _writes_equal(got: tuple, ref: tuple) -> list[str]:
+    r"""The names of the tables that differ between two calls' tables."""
+    return [n for n, a, b in zip(WRITES_TABLES, got, ref) if not torch.equal(a, b)]
+
+
+def _writes_check(case_args: tuple, where: str) -> tuple:
+    r"""The kernel on fresh tables equals the plain version's tables on
+    fresh tables, one launch; the guard row and cell keep their values;
+    returns the kernel's tables."""
+    from bblean_tpu_torch.ops import commit_writes as cw
+
+    got = tuple(t.clone() if i < 4 else t for i, t in enumerate(case_args))
+    ref = tuple(t.clone() if i < 4 else t for i, t in enumerate(case_args))
+    before = cw.launches
+    cw.commit_writes(*got)
+    cw.commit_writes_plain(*ref)
+    torch.cuda.synchronize()
+    if cw.launches != before + 1:
+        raise AssertionError(f"{where}: launches {before} -> {cw.launches}")
+    bad = _writes_equal(got, ref)
+    if bad:
+        raise AssertionError(f"{where}: {', '.join(bad)} differ from the plain version's")
+    if not torch.equal(got[0][-1], case_args[0][-1]) or not torch.equal(got[1][-1, -1], case_args[1][-1, -1]):
+        raise AssertionError(f"{where}: the guard row or cell changed")
+    return got
+
+
+def _writes_replays(args: tuple) -> None:
+    r"""One call captured in a CUDA graph, replayed ``REPLAYS`` times, its
+    tables restored before each from the same start (same addresses): each
+    replay's tables equal the plain version's."""
+    from bblean_tpu_torch.ops import commit_writes as cw
+
+    start = tuple(t.clone() for t in args[:4])
+    ref = tuple(t.clone() for t in args[:4])
+    cw.commit_writes_plain(*ref, *args[4:])
+
+    def restore():
+        for t, s in zip(args[:4], start):
+            t.copy_(s)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cw.commit_writes(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cw.commit_writes(*args)
+    for k in range(REPLAYS):
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+        bad = _writes_equal(args[:4], ref)
+        if bad:
+            raise AssertionError(f"phase 2g graph replay {k}: {', '.join(bad)} differ from the plain version's")
+
+
+def _time_writes(args: tuple) -> dict:
+    r"""One call of the writes timed (``_time_case``) over copies of its
+    arguments in turn (each call writes into its copy's tables again: the
+    same work), beside its bound (``_writes_bound``) and the library
+    yardstick (``_writes_library``, on the same copies' pools)."""
+    from bblean_tpu_torch.ops import commit_writes as cw
+
+    big = sum(args[WRITES_ARGS.index(k)].numel() * 4 for k in ("row_ls", "gj_ls"))
+    copies = _copies(args, big)
+    take = _in_turn(copies)
+    t = _time_case(
+        lambda: cw.commit_writes(*take()), lambda: cw.commit_writes_plain(*take()),
+        _writes_bound(args), name=WRITES_KERNELS,
+    )
+    calls = [(c[0], _writes_library(c)) for c in copies]
+    pick = _in_turn(calls)
+
+    def library():
+        ls, call = pick()
+        call(ls)
+
+    t["library_ms"] = _median_ms(library)
+    t["copies"] = len(copies)
+    return t
+
+
+def phase_writes() -> dict:
+    r"""Phase 2g: the pool and tile writes' kernel (``ops/commit_writes.py``,
+    ``csrc/commit_writes.cu``) bit-equal to its plain version (every
+    table, the guard row and cell unchanged) in every layout of
+    ``WRITES_LAYOUTS`` at 8,192 and 2,048 rows of 2048 bits (segments of
+    thousands of rows, split over many blocks; the vote's edge and its
+    ``n <= 1`` rule; writes past capacity), and at 264 bits (a byte tail,
+    scalar loads); then ``REPLAYS`` replays of a captured call.  Timed on
+    the t = 0.3-like layout at both widths over copies of the inputs in
+    turn, beside ``index_add_`` of the adders' rows (the library
+    yardstick).  The kernels line's record is timed on a round of the fit
+    (phase 4)."""
+    rng = np.random.default_rng(37)
+    timing = {}
+    replay = None
+    cases = [(m, N_FEATURES, layout) for m in (8192, 2048) for layout in WRITES_LAYOUTS]
+    cases += [(2048, 264, "edges"), (300, 2048, "t=0.3 runs")]
+    for m, f, layout in cases:
+        case = commit_writes_case(rng, m, f, layout)
+        args = writes_args(case, "cuda")
+        _writes_check(args, f"phase 2g M={m} F={f} {layout}")
+        _keys, sizes = np.unique(case["agrp"][case["committed"]], return_counts=True)
+        r = _writes_reads(args)
+        line = (
+            f"phase 2g pool and tile writes == plain: M={m} F={f} {layout} ({len(sizes)} merge "
+            f"segments, longest {sizes.max() if len(sizes) else 0} committed rows; {r['promo']} "
+            f"promotions, {r['adder']} adders, {r['pooled']} pooled creations, {r['tiles']} tile cells)"
+        )
+        if layout == "t=0.3 runs" and f == N_FEATURES and m in (8192, 2048):
+            t = timing[f"M={m}"] = _time_writes(args)
+            line += _timing_text(t) + (
+                f"; index_add_ of the adders' rows {t['library_ms']:.4f} ms; over {t['copies']} copies"
+            )
+            if m == 8192:
+                replay = args
+        say(line)
+    _writes_replays(replay)
+    say(f"phase 2g pool and tile writes == plain on {REPLAYS} replays of a captured call")
+    return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
+
+
 def _reset_counts() -> None:
-    from bblean_tpu_torch.ops import prefix_commit, route, tile_search as ts
+    from bblean_tpu_torch.ops import (
+        commit_writes, leader_election, prefix_commit, route, tile_search as ts,
+    )
 
     ts.launches = 0
     ts.row_launches = 0
@@ -1283,6 +1856,8 @@ def _reset_counts() -> None:
     route.generic_launches = 0
     route.wgmma_launches = 0
     prefix_commit.launches = 0
+    leader_election.launches = 0
+    commit_writes.launches = 0
 
 
 def _counts() -> tuple[int, int, int]:
@@ -1302,15 +1877,22 @@ def _route_counts() -> tuple[int, int, int, int]:
     )
 
 
-def _kernel_counts() -> tuple[int, int, int]:
-    r"""Launches of the route, its twin and the prefix-commit kernel."""
-    from bblean_tpu_torch.ops import prefix_commit, route
+def _kernel_counts() -> tuple[int, int, int, int, int]:
+    r"""Launches of the route, its twin, the prefix-commit kernel, the
+    leader election and the pool and tile writes."""
+    from bblean_tpu_torch.ops import commit_writes, leader_election, prefix_commit, route
 
-    return route.route_launches, route.best_sim_launches, prefix_commit.launches
+    return (
+        route.route_launches, route.best_sim_launches, prefix_commit.launches,
+        leader_election.launches, commit_writes.launches,
+    )
 
 
 # A phase's launches of every kernel of the kernels line
-LAUNCH_KEYS = ("sorted", "rows", "plan", "route", "twin", "prefix-commit")
+LAUNCH_KEYS = (
+    "sorted", "rows", "plan", "route", "twin", "prefix-commit", "leader-election",
+    "commit-writes",
+)
 
 
 def _add_launches(launches: dict) -> tuple[int, int, int]:
@@ -1323,15 +1905,22 @@ def _add_launches(launches: dict) -> tuple[int, int, int]:
 
 def _check_prefix_launches(what: str, rounds: int | None = None) -> int:
     r"""A run that inserts rows must launch the prefix-commit kernel, three
-    times an insert round where ``rounds`` counts them; returns its
+    times an insert round where ``rounds`` counts them, and the leader
+    election and the pool and tile writes, once a round (the diameter
+    criterion elects in every round); returns the prefix-commit kernel's
     launches since the last ``_reset_counts()``."""
-    from bblean_tpu_torch.ops import prefix_commit
+    from bblean_tpu_torch.ops import commit_writes, leader_election, prefix_commit
 
     n = prefix_commit.launches
-    if n <= 0 or (rounds is not None and n != 3 * rounds):
-        raise AssertionError(
-            f"{what}: {n} prefix-commit launches" + (f" for {rounds} insert rounds" if rounds else "")
-        )
+    per_round = {
+        "prefix-commit": (n, 3), "leader-election": (leader_election.launches, 1),
+        "commit-writes": (commit_writes.launches, 1),
+    }
+    for name, (got, k) in per_round.items():
+        if got <= 0 or (rounds is not None and got != k * rounds):
+            raise AssertionError(
+                f"{what}: {got} {name} launches" + (f" for {rounds} insert rounds" if rounds else "")
+            )
     return n
 
 
@@ -1451,8 +2040,10 @@ class _PlainOnCuda:
     none) while installed in place of ``tile_search.search_tiles_plain``,
     through which both tile-search wrappers reach the plain search, of
     ``route.route_groups_plain`` and ``route.best_group_sim_plain``, through
-    which the route's wrappers reach theirs, and of
-    ``prefix_commit.prefix_commit_moments_plain``.  ``self.plain`` and
+    which the route's wrappers reach theirs, of
+    ``prefix_commit.prefix_commit_moments_plain``, and of
+    ``leader_election.elect_leaders_plain`` and
+    ``commit_writes.commit_writes_plain``.  ``self.plain`` and
     ``self.route_plain`` are the uncounted originals."""
 
     def __init__(self) -> None:
@@ -1467,6 +2058,14 @@ class _PlainOnCuda:
         self.route_calls = dict.fromkeys(self.route_plain, 0)
         self.prefix, self.prefix_plain = prefix_commit, prefix_commit.prefix_commit_moments_plain
         self.prefix_calls = 0
+        from bblean_tpu_torch.ops import commit_writes, leader_election
+
+        # The round's other plain versions: (module, name) -> original
+        self.round_plain = {
+            (leader_election, "elect_leaders_plain"): leader_election.elect_leaders_plain,
+            (commit_writes, "commit_writes_plain"): commit_writes.commit_writes_plain,
+        }
+        self.round_calls = dict.fromkeys(self.round_plain, 0)
 
     def __call__(self, row_pk, *args):
         self.calls += row_pk.device.type == "cuda"
@@ -1485,11 +2084,22 @@ class _PlainOnCuda:
         self.prefix_calls += row_ls.device.type == "cuda"
         return self.prefix_plain(criterion, row_ls, *args)
 
+    def _round_counted(self, key):
+        fn = self.round_plain[key]
+
+        def call(first, *args):
+            self.round_calls[key] += first.device.type == "cuda"
+            return fn(first, *args)
+
+        return call
+
     def __enter__(self):
         self.ts.search_tiles_plain = self
         for name in self.route_plain:
             setattr(self.route, name, self._counted(name))
         self.prefix.prefix_commit_moments_plain = self._prefix_counted
+        for key in self.round_plain:
+            setattr(*key, self._round_counted(key))
         return self
 
     def __exit__(self, *exc) -> None:
@@ -1497,6 +2107,8 @@ class _PlainOnCuda:
         for name, fn in self.route_plain.items():
             setattr(self.route, name, fn)
         self.prefix.prefix_commit_moments_plain = self.prefix_plain
+        for key, fn in self.round_plain.items():
+            setattr(*key, fn)
 
     def check(self, what: str) -> None:
         if self.calls:
@@ -1504,6 +2116,7 @@ class _PlainOnCuda:
         if self.prefix_calls:
             raise AssertionError(f"the plain prefix commits ran on CUDA tensors during {what}")
         ran = [name for name, n in self.route_calls.items() if n]
+        ran += [name for (_mod, name), n in self.round_calls.items() if n]
         if ran:
             raise AssertionError(f"{' and '.join(ran)} ran on CUDA tensors during {what}")
 
@@ -1590,14 +2203,25 @@ class _PrefixWork:
     :meth:`traffic` gives their masks, needed rows and runs.  While
     ``sampling`` is set (a comparison's run, off the fit's counts), a call
     is not logged; the first call of each (M, call) is copied to the host
-    into ``samples``."""
+    into ``samples``, and so is the first call of the leader election and
+    of the pool and tile writes at each M (keys ("election", M) and
+    ("writes", M); the writes' four tables as their shapes and dtypes,
+    to be made again as zeros)."""
 
     def __init__(self, log: bool = True) -> None:
         from bblean_tpu_torch.engine import graphs
         from bblean_tpu_torch.ops import prefix_commit as pc
         from bblean_tpu_torch.ops.merges import moment_count
 
+        try:
+            from bblean_tpu_torch.ops import commit_writes as cw, leader_election as le
+        except ImportError:  # a checkout without those kernels (chip_ab.py's other)
+            cw = le = None
+
         self.graphs, self.pc, self.launch = graphs, pc, pc._launch
+        self.le, self.cw = le, cw
+        if le is not None:
+            self.le_launch, self.cw_launch = le._launch, cw._launch
         self.moment_count = moment_count
         self.log = log
         self.seen: list[tuple[int, int, int, str, bool]] = []
@@ -1658,6 +2282,17 @@ class _PrefixWork:
     def _replayed(self, prog, stage: str) -> None:
         if stage == "after":
             self.seen.extend(prog.notes.get("prefix", ()))
+
+    def _sample_election(self, *args):
+        if self.sampling:
+            self.samples.setdefault(("election", args[0].shape[0]), _to_host(args))
+        return self.le_launch(*args)
+
+    def _sample_writes(self, *args):
+        if self.sampling:
+            tables = tuple(("zeros", tuple(t.shape), t.dtype) for t in args[:4])
+            self.samples.setdefault(("writes", args[6].shape[0]), tables + _to_host(args[4:]))
+        return self.cw_launch(*args)
 
     def rows(self) -> np.ndarray:
         r"""(launches, 4): each launch's rows in the mask, longest run, rows
@@ -1722,12 +2357,37 @@ class _PrefixWork:
             torch.cuda.synchronize()
             self._start = int(_PREFIX_LOG[dev][1].item())
         self.pc._launch = self._record
+        if self.le is not None:
+            self.le._launch, self.cw._launch = self._sample_election, self._sample_writes
         self.graphs.observers.append(self._replayed)
         return self
 
     def __exit__(self, *exc) -> None:
         self.pc._launch = self.launch
+        if self.le is not None:
+            self.le._launch, self.cw._launch = self.le_launch, self.cw_launch
         self.graphs.observers.remove(self._replayed)
+
+
+def _to_host(args):
+    r"""A call's arguments copied to the host (tuples within, None kept)."""
+    if isinstance(args, torch.Tensor):
+        return args.cpu()
+    if isinstance(args, tuple):
+        return tuple(_to_host(a) for a in args)
+    return args
+
+
+def _to_card(args):
+    r"""A sample's arguments on the card: tensors copied, tables given as
+    ("zeros", shape, dtype) made as zeros."""
+    if isinstance(args, torch.Tensor):
+        return args.to("cuda")
+    if isinstance(args, tuple) and args and isinstance(args[0], str):
+        return torch.zeros(args[1], dtype=args[2], device="cuda")
+    if isinstance(args, tuple):
+        return tuple(_to_card(a) for a in args)
+    return args
 
 
 class _ReplayTwin:
@@ -1971,10 +2631,12 @@ def phase_prefix_fit(samples: dict) -> dict:
     from bblean_tpu_torch.ops import prefix_commit as pc
 
     want = {(m, call) for m in (8192, 2048) for call in ("screen", "pass 1", "pass 2")}
+    want |= {(kind, m) for kind in ("election", "writes") for m in (8192, 2048)}
     if set(samples) != want:
-        raise AssertionError(f"phase 4 sampled the prefix-commit calls {sorted(samples)}, not {sorted(want)}")
+        raise AssertionError(f"phase 4 sampled the calls {sorted(samples, key=str)}, not {sorted(want, key=str)}")
     timing = {}
-    for (m, call), args in sorted(samples.items(), key=lambda kv: (-kv[0][0], kv[0][1])):
+    prefix_samples = {k: v for k, v in samples.items() if isinstance(k[0], int)}
+    for (m, call), args in sorted(prefix_samples.items(), key=lambda kv: (-kv[0][0], kv[0][1])):
         args = tuple(a.to("cuda") if isinstance(a, torch.Tensor) else a for a in args)
         if not torch.equal(pc.prefix_commit_moments(*args), pc.prefix_commit_moments_plain(*args)):
             raise AssertionError(f"phase 4 prefix commits, round of the fit M={m} {call}: kernel != plain")
@@ -1988,7 +2650,33 @@ def phase_prefix_fit(samples: dict) -> dict:
             f"({args[0]}{segs})" + _prefix_timing_text(t)
         )
     timing["fit"] = timing["M=8192 pass 1"]  # the kernels line's record
-    return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
+    election, writes = {}, {}
+    for m in (8192, 2048):
+        args = _to_card(samples[("election", m)])
+        _election_check(args, f"phase 4 leader election, round of the fit M={m}")
+        t = election[f"M={m}"] = _time_election(args)
+        say(
+            f"phase 4 leader election == plain on a round of the t=0.3 fit, M={m} "
+            f"({'sims' if args[4] is not None else 'packed rows'})" + _timing_text(t)
+            + f"; over {t['copies']} copies"
+        )
+        args = _to_card(samples[("writes", m)])
+        _writes_check(args, f"phase 4 pool and tile writes, round of the fit M={m}")
+        t = writes[f"M={m}"] = _time_writes(args)
+        say(
+            f"phase 4 pool and tile writes == plain on a round of the t=0.3 fit, M={m} (tables "
+            f"zeroed)" + _timing_text(t) + f"; index_add_ of the adders' rows "
+            f"{t['library_ms']:.4f} ms; over {t['copies']} copies"
+        )
+        del args
+        torch.cuda.empty_cache()
+    election["fit"], writes["fit"] = election["M=8192"], writes["M=8192"]
+    # Bit-equal, else the phase failed
+    return {
+        "max_abs_err": 0.0, "timing": timing,
+        "election": {"max_abs_err": 0.0, "timing": election},
+        "writes": {"max_abs_err": 0.0, "timing": writes},
+    }
 
 
 def _time_predict_searches(tree, queries: np.ndarray) -> dict:
@@ -3324,14 +4012,16 @@ def _kernel_record(name, source, replaces, launches, phase, library_ms=None) -> 
 
 
 def _only_kernels() -> None:
-    r"""Phases 1, 2, 2b, 2c, 2d and 2e alone (no kernels line, no result
-    line)."""
+    r"""Phases 1, 2, 2b, 2c, 2d, 2e, 2f and 2g alone (no kernels line, no
+    result line)."""
     phase_device()
     phase_kernel()
     phase_row_kernel()
     phase_plan()
     phase_route()
     phase_prefix_commit()
+    phase_election()
+    phase_writes()
 
 
 def _only_sharded() -> None:
@@ -3399,6 +4089,8 @@ def main() -> None:
     plan = phase_plan()
     routes = phase_route()
     prefix = phase_prefix_commit()
+    phase_election()
+    phase_writes()
     phase_cpu_vs_cuda()
     full = phase_full_size()
     prefix_fit = phase_prefix_fit(full["prefix_samples"])
@@ -3434,6 +4126,15 @@ def main() -> None:
             "prefix_commit", "prefix_commit.cu", "bblean_tpu/engine/batch.py:406",
             full["launches"]["prefix-commit"], prefix_fit,
             prefix_fit["timing"]["fit"]["library_ms"],
+        ),
+        _kernel_record(
+            "leader_election", "leader_election.cu", "bblean_tpu/engine/batch.py:504",
+            full["launches"]["leader-election"], prefix_fit["election"],
+        ),
+        _kernel_record(
+            "commit_writes", "commit_writes.cu", "bblean_tpu/engine/batch.py:660",
+            full["launches"]["commit-writes"], prefix_fit["writes"],
+            prefix_fit["writes"]["timing"]["fit"]["library_ms"],
         ),
     ]}))
     say(json.dumps({"ok": True, "device": {

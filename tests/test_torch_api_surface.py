@@ -95,6 +95,16 @@ PORT_ONLY = {
         "round's prefix-commit scans and merge-test sums, which JAX fuses "
         "inside the jitted step of engine/batch.py"
     ),
+    "ops.leader_election": (
+        "wrapper of csrc/leader_election.cu and the plain version: the insert "
+        "round's leader election, which JAX fuses inside the jitted step of "
+        "engine/batch.py"
+    ),
+    "ops.commit_writes": (
+        "wrapper of csrc/commit_writes.cu and the plain version: the insert "
+        "round's pool and tile writes, which JAX fuses inside the jitted step "
+        "of engine/batch.py"
+    ),
 }
 
 

@@ -1,0 +1,230 @@
+r"""The insert round's pool and tile writes (``ops/commit_writes.py``)
+against JAX.
+
+The writes are rebuilt here in JAX as ``bblean_tpu/engine/batch.py`` writes
+them: ``:572-579`` (each joint creation's sums spread to its rows),
+``:660-684`` (step 7: the created clusters' majority votes, packed into
+their tile cells with their popcounts and slots) and ``:686-723`` (step 8:
+the segment sums of the committed rows, the promotions, the adds and the
+pooled creations, every scatter in ``mode="drop"``), and run in the port as
+the batch engine runs them: ``commit_writes_plain`` (what the wrapper runs
+for CPU tensors).  Every table must equal JAX's exactly.  Inputs are
+``chip_smoke.commit_writes_case``'s at 64-256 rows of 64 or 100 bits:
+promotions and adders, pooled creations with and without a cohesive
+joint, the vote's edge and its ``n <= 1`` rule, writes past capacity, the
+guard row, and segments longer than the kernel's chunk of 32 sorted rows.
+The CUDA kernel itself runs only on a card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 2g), where it is held to the plain version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from bblean_tpu.ops.isim import majority_centroid_from_sums as jax_vote
+from bblean_tpu.ops.packing import pack_fingerprints_device as jax_pack
+from bblean_tpu.ops.packing import unpack_fingerprints_device as jax_unpack
+from bblean_tpu_torch.engine import batch as tb
+from bblean_tpu_torch.ops import commit_writes as cw
+
+torch.set_num_threads(2)
+
+SEED = 20261019
+
+
+def _jax_writes(c: dict) -> tuple:
+    r"""The JAX lines on ``commit_writes_case``'s arrays: the four tables
+    after the round's writes (numpy)."""
+    a = {k: jnp.asarray(v) for k, v in c.items()}
+    m, f = c["row_ls"].shape
+    g_cap, fc, _f8 = c["t_pk"].shape
+    p_cap = c["ls"].shape[0]
+    # :572-579 (jorder, jgrp: the rows sorted by their cohesion segment)
+    jorder = jnp.argsort(a["jseg"], stable=True)
+    jgrp = a["jseg"][jorder]
+    gj_full_ls = jnp.zeros_like(a["row_ls"]).at[jorder].set(a["gj_ls"][jgrp], unique_indices=True)
+    pool_created_ls = jnp.where(a["join_ok"][:, None], gj_full_ls, a["row_ls"])
+    # The promoted candidates' old bits, from the tiles before the round
+    # (``_cluster_ls_of`` of a singleton)
+    cand_ls_s = jax_unpack(a["t_pk"][a["group"][a["best_s"]], a["pos"][a["best_s"]]], f).astype(jnp.int32)
+    # :660-684
+    tgt_group, tgt_pos = a["cell"] // fc, a["cell"] % fc
+    created_ls = jnp.where((a["join_ok"] & a["fits"])[:, None], gj_full_ls, a["row_ls"])
+    c_cent = jax_vote(created_ls, jnp.maximum(a["created_n"], 1))
+    c_packed = jax_pack(c_cent)
+    ts_g = jnp.where(a["create_commit"], tgt_group, g_cap)
+    t_pk = a["t_pk"].at[ts_g, tgt_pos].set(c_packed, mode="drop", unique_indices=True)
+    t_pops = a["t_pops"].at[ts_g, tgt_pos].set(
+        jnp.sum(c_cent.astype(jnp.int32), axis=-1), mode="drop", unique_indices=True
+    )
+    t_slot = a["t_slot"].at[ts_g, tgt_pos].set(a["new_slot"], mode="drop", unique_indices=True)
+    # :686-723
+    seg_add_ls = jax.ops.segment_sum(
+        jnp.where(a["committed"][:, None], a["row_ls"][a["aorder"]], 0), a["agrp"], num_segments=m,
+    )[a["agrp"]]
+    pool = a["ls"].at[jnp.where(a["promo"], a["ref_promo"], p_cap)].set(
+        cand_ls_s + seg_add_ls, mode="drop", unique_indices=True
+    )
+    pool = pool.at[jnp.where(a["adder"], a["cand_ref"], p_cap)].add(
+        seg_add_ls, mode="drop", unique_indices=True
+    )
+    pool = pool.at[jnp.where(a["create_pool"], a["ref_create"], p_cap)].set(
+        pool_created_ls, mode="drop", unique_indices=True
+    )
+    return tuple(np.asarray(t) for t in (pool, t_pk, t_pops, t_slot))
+
+
+def _check(case: dict) -> tuple:
+    r"""The port's plain writes on fresh tables equal JAX's; returns the
+    port's tables (numpy)."""
+    args = chip_smoke.writes_args(case, "cpu")
+    assert cw.commit_writes(*args) is None
+    got = tuple(t.numpy() for t in args[:4])
+    for name, g, w in zip(chip_smoke.WRITES_TABLES, got, _jax_writes(case)):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("m,f", [(256, 64), (64, 64), (128, 100)])
+@pytest.mark.parametrize("layout", chip_smoke.WRITES_LAYOUTS)
+def test_writes_match_jax(layout, m, f) -> None:
+    rng = np.random.default_rng(SEED + chip_smoke.WRITES_LAYOUTS.index(layout) + m + f)
+    case = chip_smoke.commit_writes_case(rng, m, f, layout)
+    got = _check(case)
+    promo, adder = case["promo"], case["adder"]
+    if layout == "singletons":
+        assert promo.sum() > adder.sum() > 0
+    elif layout == "one segment":
+        assert promo.sum() + adder.sum() == 1
+    else:
+        assert promo.any() and adder.any()
+    # The guard row and the guard group's last cell keep their values
+    np.testing.assert_array_equal(got[0][-1], case["ls"][-1])
+    np.testing.assert_array_equal(got[1][-1, -1], case["t_pk"][-1, -1])
+
+
+def test_case_covers_the_edges() -> None:
+    r""""edges" holds what it claims: sums at the vote's edge, counts of 0
+    and 1 with sums past 1, writes past every table's capacity (which
+    drop), pooled creations with and without a cohesive joint, and a merge
+    segment longer than the kernel's chunk of 32 sorted rows."""
+    rng = np.random.default_rng(SEED + 1)
+    c = chip_smoke.commit_writes_case(rng, 256, 64, "edges")
+    got = _check(c)
+    p_cap = c["ls"].shape[0]
+    n_cells = c["t_pk"].shape[0] * c["t_pk"].shape[1]
+    own = c["create_commit"] & ~(c["join_ok"] & c["fits"])
+    n = np.maximum(c["created_n"], 1)
+    assert (own[:, None] & (2 * c["row_ls"] == n[:, None]) & (n[:, None] > 1)).sum() > 20
+    assert (own & (c["created_n"] == 0)).any() and (own[:, None] & (n[:, None] <= 1) & (c["row_ls"] > 1)).any()
+    for mask, ref, cap in ((c["promo"], c["ref_promo"], p_cap), (c["adder"], c["cand_ref"], p_cap),
+                           (c["create_pool"], c["ref_create"], p_cap),
+                           (c["create_commit"], c["cell"], n_cells)):
+        assert (mask & (ref >= cap)).sum() == 3
+    assert (c["create_pool"] & c["join_ok"]).any() and (c["create_pool"] & ~c["join_ok"]).any()
+    _keys, sizes = np.unique(c["agrp"][c["committed"]], return_counts=True)
+    assert sizes.max() > 32
+    # Rows outside every mask and write past capacity leave the pool as it was
+    written = np.zeros(p_cap, bool)
+    for mask, ref in ((c["promo"], c["ref_promo"]), (c["adder"], c["cand_ref"]),
+                      (c["create_pool"], c["ref_create"])):
+        written[ref[mask & (ref < p_cap)]] = True
+    np.testing.assert_array_equal(got[0][~written], c["ls"][~written])
+
+
+def test_writes_bound_counts_the_rows() -> None:
+    r"""The bound charges the committed rows, the joint and own sums read,
+    the pool rows written (adders twice), the promoted cells and the tile
+    cells; a write past capacity moves nothing."""
+    rng = np.random.default_rng(SEED + 2)
+    c = chip_smoke.commit_writes_case(rng, 256, 2048, "edges")
+    args = chip_smoke.writes_args(c, "cpu")
+    r = chip_smoke._writes_reads(args)
+    assert r["promo"] == int(c["promo"].sum()) - 3 and r["adder"] == int(c["adder"].sum()) - 3
+    assert r["pooled"] == int(c["create_pool"].sum()) - 3 and r["tiles"] == int(c["create_commit"].sum()) - 3
+    row = 2048 * 4
+    want = (
+        (r["committed"] + r["joint"] + r["own"]) * row + (r["promo"] + 2 * r["adder"] + r["pooled"]) * row
+        + r["promo"] * 256 + r["tiles"] * (256 + 8) + 256 * (8 + 40 + 7)
+    )
+    b = chip_smoke._writes_bound(args)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(want / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_library_yardstick_is_the_adders_part() -> None:
+    r"""``index_add_`` of the adders' committed rows gives the adders' pool
+    rows of the plain version's writes (on a case without promotions or
+    creations that write)."""
+    rng = np.random.default_rng(SEED + 3)
+    c = chip_smoke.commit_writes_case(rng, 128, 64, "t=0.3 runs")
+    c["promo"][:] = False
+    c["create_pool"][:] = False
+    c["create_commit"][:] = False
+    args = chip_smoke.writes_args(c, "cpu")
+    ls = args[0].clone()
+    chip_smoke._writes_library(args)(ls)
+    cw.commit_writes_plain(*args)
+    assert torch.equal(ls, args[0])
+
+
+def test_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch) -> None:
+    r"""CPU tensors take the plain version and launch nothing; the
+    kernel's own path takes CUDA tensors only, and a kernel that does not
+    build raises (no fallback)."""
+    rng = np.random.default_rng(SEED + 4)
+    case = chip_smoke.commit_writes_case(rng, 64, 64, "t=0.3 runs")
+    got, ref = chip_smoke.writes_args(case, "cpu"), chip_smoke.writes_args(case, "cpu")
+    before = cw.launches
+    cw.commit_writes(*got)
+    cw.commit_writes_plain(*ref)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], ref[:4]))
+    assert cw.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        cw._launch(*got)
+
+    def no_build(source):
+        raise RuntimeError(f"nvcc failed to build {source}")
+
+    monkeypatch.setattr(cw, "_kernel_lib", None)
+    monkeypatch.setattr("bblean_tpu_torch._build.load_kernel_library", no_build)
+    with pytest.raises(RuntimeError, match="commit_writes.cu"):
+        cw._lib()
+
+
+def test_insert_round_writes_through_the_wrapper(monkeypatch) -> None:
+    r"""Each insert round makes one call of ``commit_writes`` and of
+    ``elect_leaders`` (the diameter criterion elects every round), and no
+    (M, F) plane is spread from the cohesion sums: the writes read
+    ``gj_ls`` through each row's segment (``jseg``)."""
+    from bblean_tpu_torch import BatchTree
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+
+    calls = {"round": 0, "writes": 0, "elect": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    def writes(*args):
+        calls["writes"] += 1
+        a = dict(zip(chip_smoke.WRITES_ARGS, args))
+        m = a["row_ls"].shape[0]
+        assert a["gj_ls"].shape == a["row_ls"].shape and a["jseg"].shape == (m,)
+        assert a["ls"] is not a["row_ls"] and a["t_pk"].dim() == 3
+        return cw.commit_writes(*args)
+
+    monkeypatch.setattr(tb, "_insert_round", counted("round", tb._insert_round))
+    monkeypatch.setattr(tb, "elect_leaders", counted("elect", tb.elect_leaders))
+    monkeypatch.setattr(tb, "commit_writes", writes)
+    fps = make_fake_fingerprints(300, 256, seed=5)
+    tree = BatchTree(256, threshold=0.3, batch_size=64, device="cpu")
+    tree.fit_packed(fps, range(300))
+    assert calls["round"] > 0
+    assert calls["writes"] == calls["elect"] == calls["round"]

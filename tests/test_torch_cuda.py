@@ -6,6 +6,9 @@ rows and more work units than SMs) and the prefix-commit kernel (the
 insert round's screen and two passes, all six criteria, every layout of
 segments, sums past 2^16, the vote's edge, several column tiles, with and
 without ``need``, the look-back's stress cases, inside a captured CUDA
+graph), the leader election (every layout, with sims and a plan, with sims
+alone, from the packed rows, in a captured graph) and the pool and tile
+writes (every layout, byte tails, writes past capacity, in a captured
 graph) against their plain versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
@@ -869,3 +872,95 @@ def test_prefix_commit_wrapper_rejects_bad_inputs(cuda) -> None:
     for i, t in bad.items():
         with pytest.raises(ValueError):
             pc.prefix_commit_moments(*args[:i], t, *args[i + 1:])
+
+
+@pytest.mark.parametrize("layout", ["one group", "t=0.3 groups", "ties", "force lead", "none rejected"])
+@pytest.mark.parametrize("m", [8192, 2048])
+def test_leader_election_kernel_matches_plain(cuda, m, layout) -> None:
+    r"""Every election layout at the wide and narrow rounds' widths: with
+    the step's sims and plan, with sims and no plan, and (at 2,048 rows)
+    from the packed rows; leads, lead_of and best_lead_sim bit-equal to
+    the plain version, one launch a call."""
+    import chip_smoke
+
+    case = chip_smoke.election_case(np.random.default_rng(43), m, 2048, layout)
+    modes = [(True, True), (True, False)] + ([(False, False)] if m == 2048 else [])
+    for wide, plan in modes:
+        chip_smoke._election_check(chip_smoke.election_args(case, cuda, wide, plan), f"{layout} {wide} {plan}")
+
+
+@pytest.mark.parametrize("m,f", [(300, 100), (1, 2048)])
+def test_leader_election_kernel_edges(cuda, m, f) -> None:
+    r"""A byte tail in the packed rows (100 bits: read as bytes) and a
+    single row."""
+    import chip_smoke
+
+    case = chip_smoke.election_case(np.random.default_rng(44), m, f, "t=0.3 groups")
+    for wide, plan in ((True, True), (False, False)):
+        chip_smoke._election_check(chip_smoke.election_args(case, cuda, wide, plan), f"M={m} F={f}")
+
+
+def test_leader_election_in_a_cuda_graph(cuda) -> None:
+    import chip_smoke
+
+    case = chip_smoke.election_case(np.random.default_rng(45), 2048, 2048, "t=0.3 groups")
+    chip_smoke._election_replays(chip_smoke.election_args(case, cuda, True))
+    chip_smoke._election_replays(chip_smoke.election_args(case, cuda, False))
+
+
+def test_leader_election_wrapper_rejects_bad_inputs(cuda) -> None:
+    import chip_smoke
+    from bblean_tpu_torch.ops import leader_election as le
+
+    case = chip_smoke.election_case(np.random.default_rng(46), 64, 64, "t=0.3 groups")
+    args = chip_smoke.election_args(case, cuda, True)
+    bad = {
+        0: args[0].to(torch.int32),  # rejected's dtype
+        2: args[2].cpu(),  # another device
+        3: args[3][None],  # the threshold's shape
+        4: args[4].t(),  # not contiguous
+        7: (args[7][0][:-1], args[7][1][:-1]),  # the plan's length
+    }
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            le.elect_leaders(*args[:i], t, *args[i + 1:])
+    with pytest.raises(ValueError):
+        le.elect_leaders(*args[:4], None, None, None, None)  # no sims and no packed rows
+
+
+@pytest.mark.parametrize("layout", ["t=0.3 runs", "one segment", "singletons", "edges"])
+@pytest.mark.parametrize("m,f", [(8192, 2048), (2048, 2048), (2048, 264), (300, 100)])
+def test_commit_writes_kernel_matches_plain(cuda, m, f, layout) -> None:
+    r"""Every writes layout at the rounds' widths and at 264 and 100 bits
+    (scalar loads, byte tails): every table bit-equal to the plain
+    version's, the guard row and cell unchanged, one launch."""
+    import chip_smoke
+
+    case = chip_smoke.commit_writes_case(np.random.default_rng(47), m, f, layout)
+    chip_smoke._writes_check(chip_smoke.writes_args(case, cuda), f"M={m} F={f} {layout}")
+
+
+def test_commit_writes_in_a_cuda_graph(cuda) -> None:
+    import chip_smoke
+
+    case = chip_smoke.commit_writes_case(np.random.default_rng(48), 2048, 2048, "t=0.3 runs")
+    chip_smoke._writes_replays(chip_smoke.writes_args(case, cuda))
+
+
+def test_commit_writes_wrapper_rejects_bad_inputs(cuda) -> None:
+    import chip_smoke
+    from bblean_tpu_torch.ops import commit_writes as cw
+
+    case = chip_smoke.commit_writes_case(np.random.default_rng(49), 64, 64, "t=0.3 runs")
+    args = chip_smoke.writes_args(case, cuda)
+    bad = {
+        0: args[0].to(torch.int64),  # the pool's dtype
+        1: args[1][..., :-1],  # the tiles' bytes
+        6: args[6].t().contiguous().t(),  # not contiguous
+        8: args[8].to(torch.int32),  # the order's dtype
+        12: args[12].cpu(),  # another device
+        16: args[16][:-1],  # a row input's length
+    }
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            cw.commit_writes(*args[:i], t, *args[i + 1:])
