@@ -32,8 +32,10 @@ only where a cluster's sums pass 2^24 (tests hold the rest to JAX exactly):
   would commit nothing).
 - JAX compiles the step into one program; here each insert round and each
   split pass is one program of ``engine/graphs.py``, a CUDA graph on the
-  card replayed once per round, while the route, the row Gram, the sort
-  plan and the refresh are dispatched once per step.
+  card replayed once per round, while the route, the sort plan and the
+  refresh are dispatched once per step.  JAX's step-constant row Gram
+  (``row_sims``) has no counterpart: the leader election computes the
+  sims of the pairs it needs from the packed rows.
 - JAX donated the state to its jitted steps; here the step functions
   update the state's tables IN PLACE and return the state with its new
   counters.  Callers that need the old tables must copy them first.
@@ -73,7 +75,6 @@ from bblean_tpu_torch.ops.merges import merge_accept_batch, merge_accept_from_mo
 from bblean_tpu_torch.ops.prefix_commit import prefix_commit_moments
 from bblean_tpu_torch.ops.commit_writes import commit_writes
 from bblean_tpu_torch.ops.leader_election import elect_leaders
-from bblean_tpu_torch.ops.leader_election import tanimoto_gram as _tanimoto_gram
 from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
@@ -430,8 +431,8 @@ def _insert_round(
     tolerance: torch.Tensor,
     *,
     criterion: str,
-    row_sims: torch.Tensor | None = None,
     search_plan: tuple[torch.Tensor, ...] | None = None,
+    election_plan: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[BatchState, torch.Tensor, torch.Tensor, torch.Tensor]:
     r"""One insertion round over a row window of any width.
 
@@ -439,11 +440,15 @@ def _insert_round(
     through their relative order, so a round over a compacted subset of the
     rows commits exactly what the full-width round would (what makes the
     narrow retry rounds label-preserving).  ``row_group`` is the per-row
-    routed group, computed once per step.  ``row_sims`` optionally carries
-    the step-constant all-pairs row Tanimoto; None has the leader election
-    compute its pairs' sims from the packed rows in-round.
+    routed group, computed once per step; the leader election computes its
+    pairs' sims from the packed rows in-round (JAX's ``row_sims``, the
+    step's all-pairs row Tanimoto, has no counterpart here).
     ``search_plan`` is the step's sort plan ``(rows, pops, keys, order,
     items)`` for the sorted search; None runs the per-row search (no sort).
+    The leader election lists the rejected rows by group through the
+    step's plan: ``(order, keys)`` of ``search_plan``, else
+    ``election_plan``, ``(order, keys, sel)`` of a round over the step's
+    rows ``sel`` (``ops/leader_election.py``; the CPU ignores it).
 
     Updates the state's tables in place; returns (state with its new
     counters, pending, assigned, strikes).
@@ -556,15 +561,14 @@ def _insert_round(
         join = torch.zeros((m,), dtype=torch.bool, device=dev)
         lead_of = row_idx
     else:
-        # ops/leader_election.py: the pairs of one routed group, through the
-        # step's sort plan in wide rounds (every rejected row sits in its
-        # group's segment there) and the row sims computed from the packed
-        # rows in narrow ones
+        # ops/leader_election.py: the pairs of rejected rows of one routed
+        # group, their sims from the packed rows, listed through the step's
+        # sort plan (every pending row sits in its group's segment there);
+        # lead_of and best_lead_sim hold on the rejected rows that do not
+        # lead, the only ones read below
         leads, lead_of, best_lead_sim = elect_leaders(
-            rejected, force_lead, row_group, threshold, sims=row_sims,
-            row_pk=row_pk if row_sims is None else None,
-            row_pop=row_pop if row_sims is None else None,
-            plan=None if search_plan is None else (search_plan[3], search_plan[2]),
+            rejected, force_lead, row_group, threshold, row_pk=row_pk, row_pop=row_pop,
+            plan=election_plan if search_plan is None else (search_plan[3], search_plan[2]),
         )
         join = rejected & ~leads & (best_lead_sim >= threshold)
         leader = leads
@@ -733,7 +737,7 @@ def _batch_step_impl(
     m = row_ls.shape[0]
     bufs = _stage_step(
         state, row_ls, row_n, row_cent, row_pk, row_pop, threshold, tolerance,
-        criterion=criterion, block=block,
+        block=block,
     )
     tables = _tables(state)
     wide = functools.partial(_wide_round, criterion=criterion)
@@ -765,16 +769,14 @@ def _stage_step(
     threshold: torch.Tensor,
     tolerance: torch.Tensor,
     *,
-    criterion: str,
     block: int,
 ) -> graphs.Buffers:
     r"""A step's static buffers, filled: its rows, the step-constant work
     and the round state's start (all rows pending, none assigned, no
     strikes, the state's counters)."""
     m = row_ls.shape[0]
-    # Step-constant work: the route, the all-pairs row sims and the
-    # search's sort plan depend only on the rows and the routing table,
-    # which no round changes
+    # Step-constant work: the route and the search's sort plan depend only
+    # on the rows and the routing table, which no round changes
     pending0 = row_n > 0
     row_group = _route_groups(
         row_cent, row_pop, state.g_cent, state.g_pops,
@@ -793,15 +795,11 @@ def _stage_step(
     )
     specs = {k: (v.shape, v.dtype) for k, v in inputs.items()}
     specs.update(assigned=((m,), _I32), strikes=((m,), _I32))
-    if criterion != "never-merge":
-        specs["row_sims"] = ((m, m), torch.float32)
     bufs = graphs.buffers("step", row_ls.device, specs)
     for k, v in inputs.items():
         bufs[k].copy_(v)
     bufs["assigned"].fill_(-1)
     bufs["strikes"].zero_()
-    if criterion != "never-merge":
-        _tanimoto_gram(row_cent, row_pop, out=bufs["row_sims"])
     return bufs
 
 
@@ -827,8 +825,7 @@ def _wide_round(
         _state_of(tables, bufs), bufs["pending"], bufs["assigned"],
         bufs["strikes"], bufs["row_group"], bufs["row_ls"], bufs["row_n"],
         bufs["row_cent"], bufs["row_pk"], bufs["row_pop"], bufs["threshold"],
-        bufs["tolerance"], criterion=criterion, row_sims=bufs.get("row_sims"),
-        search_plan=tuple(bufs[k] for k in _PLAN),
+        bufs["tolerance"], criterion=criterion, search_plan=tuple(bufs[k] for k in _PLAN),
     )
     return (pending, assigned, strikes) + tuple(getattr(state, c) for c in _COUNTERS)
 
@@ -837,8 +834,9 @@ def _narrow_round(
     tables: tuple, bufs: graphs.Buffers, *, criterion: str, narrow: int
 ) -> tuple[torch.Tensor, ...]:
     r"""One compacted round over the ``narrow`` lowest-index pending rows on
-    the per-row search (row sims computed in-round), scattered back to full
-    width; a program as :func:`_wide_round` is."""
+    the per-row search, its leader election on the step's sort plan through
+    the selection, scattered back to full width; a program as
+    :func:`_wide_round` is."""
     pending, assigned, strikes = bufs["pending"], bufs["assigned"], bufs["strikes"]
     # Compact the pending rows to the front (stable: original order kept,
     # which is all the round logic depends on)
@@ -848,6 +846,7 @@ def _narrow_round(
         _state_of(tables, bufs), pending[sel],
         torch.full((narrow,), -1, dtype=_I32, device=sel.device), strikes[sel],
         *rows, bufs["threshold"], bufs["tolerance"], criterion=criterion,
+        election_plan=(bufs["order"], bufs["skey"], sel),
     )
     assigned = assigned.clone()
     assigned[sel] = torch.where(sub_assigned >= 0, sub_assigned, assigned[sel])

@@ -5,37 +5,52 @@ Counterpart of ``bblean_tpu/engine/batch.py:504-540`` (step 4 of JAX's
 ``_insert_round``), which XLA fuses inside its jitted step: among the
 round's rejected rows, each routed group elects as leaders the rows that no
 lower rejected row of the group is similar to (or that were struck twice),
-and every row finds its most similar leader below it.
+and every rejected row that does not lead finds its most similar leader
+below it.
 
 Contract.  A pair (j, i) counts where ``i < j``, ``rejected[i]`` and
-``row_group[i] == row_group[j]``; its sim is ``sims[j, i]`` (the step's
-all-pairs row Tanimoto, wide rounds) or, where ``sims`` is None (narrow
-rounds), the f32 Tanimoto of the packed rows ``row_pk`` with popcounts
-``row_pop``, row j's bits counting as zero unless it is rejected (the
-Gram of the rejected rows, computed in the round).  Then
+``row_group[i] == row_group[j]``; its sim is ``sims[j, i]`` (an all-pairs
+row Tanimoto) or, where ``sims`` is None, the f32 Tanimoto of the packed
+rows ``row_pk`` with popcounts ``row_pop`` (what the round passes).  Then
 
 - ``leads = rejected & (force_lead | ~any(sim >= threshold))`` over the
   counted pairs of each row (and its ``_NEG`` entries, as the plain
-  version's (M, M) row has them);
-- ``best_lead_sim`` the largest sim over the counted pairs whose ``i``
-  leads, ``_NEG = -2.0`` where there is none;
-- ``lead_of`` the first such ``i`` with that sim, 0 where there is none
-  (what ``torch.argmax`` gives over a row of ``_NEG``).
+  version's (M, M) row has them), on every row;
+- on the rows with ``rejected & ~leads``: ``best_lead_sim`` the largest
+  sim over the counted pairs whose ``i`` leads, ``_NEG = -2.0`` where
+  there is none, and ``lead_of`` the first such ``i`` with that sim, 0
+  where there is none (what ``torch.argmax`` gives over a row of
+  ``_NEG``).
 
-Sims are Tanimoto values (finite, at least 0).  The kernel's outputs equal
-the plain version's bit for bit.
+The kernel's outputs equal the plain version's bit for bit on those rows;
+on every other row it writes ``lead_of = 0`` and ``best_lead_sim =
+_NEG``, where the plain version computes values the round never reads:
+``engine/batch.py::_insert_round`` reads ``best_lead_sim`` only in ``join
+= rejected & ~leads & (best_lead_sim >= threshold)`` (``:568``), replaces
+``lead_of`` by the row's own index for the leaders (``:570``), and masks
+every later read of ``lead_of`` by ``leader | join`` (the cohesion key,
+``:575``) or ``join_commit`` (the create guard ``:606``, the fit check
+``:631`` and the joining rows' slots ``:643``).  Sims are
+Tanimoto values (finite, at least 0).
 
 Dispatch: tensors on the CPU go to :func:`elect_leaders_plain` (the torch
-chain of (M, M) planes the engine ran before, and the in-round int8 Gram);
-tensors on a CUDA device go to the hand-written kernel of
-``csrc/leader_election.cu`` and anything it does not take raises.  There is
-no fallback from the kernel to the plain version.  ``launches`` counts the
-wrapper's calls that launched the kernel (each call launches its two
-phases: the leaders, then each row's best leader).  The kernel visits only
-the pairs of one group, through the rows sorted by group: ``plan`` (the
-step's sort plan, ``(order, skey)``, in which every rejected row sits in
-its group's segment in row order) or, without one, a stable sort of
-``row_group`` made by the wrapper.
+chain of (M, M) planes the engine ran before, with the int8 Gram of the
+rejected rows where there are no sims), which computes every row; tensors
+on a CUDA device go to the hand-written kernel of
+``csrc/leader_election.cu`` and anything it does not take raises (the
+kernel takes the packed rows, never ``sims``, and needs ``plan``).  There
+is no fallback from the kernel to the plain version.  ``launches`` counts
+the wrapper's calls that launched the kernel (each call launches its three
+phases: the rejected rows listed by group, the leaders, each non-leader's
+best leader).  The kernel lists the rejected rows by group from ``plan``,
+the step's sort plan ``(order, skey)``: the step's rows sorted stably by
+group, in which every row that may be rejected sits in its group's segment
+in row order (a wide round's rows are the step's).  A narrow round's rows
+are a selection of the step's and pass ``(order, skey, sel)``, ``sel``
+the step row of each of its rows, rising over the rows that may be
+rejected (its pending rows, the step's lowest).  The kernel takes the
+groups from the plan, which must agree with ``row_group``; its scratch
+comes from the wrapper, so a call captures into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -70,8 +85,10 @@ def _lib() -> ctypes.CDLL:
 
         lib = load_kernel_library(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_leader_election.argtypes = [p] * 12 + [i] * 2 + [p]
+        lib.bb_leader_election.argtypes = [p] * 12 + [i] * 3 + [p]
         lib.bb_leader_election.restype = i
+        lib.bb_leader_election_scratch.argtypes = [i, i]
+        lib.bb_leader_election_scratch.restype = ctypes.c_size_t
         _kernel_lib = lib
     return _kernel_lib
 
@@ -95,10 +112,10 @@ def elect_leaders_plain(
     sims: torch.Tensor | None = None,  # (M, M) f32
     row_pk: torch.Tensor | None = None,  # (M, F8) uint8, where sims is None
     row_pop: torch.Tensor | None = None,  # (M,) int32, where sims is None
-    plan: tuple[torch.Tensor, torch.Tensor] | None = None,  # unused here
+    plan: tuple[torch.Tensor, ...] | None = None,  # unused here
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     r"""(leads, lead_of, best_lead_sim) of the module's contract with torch
-    ops on (M, M) planes."""
+    ops on (M, M) planes, ``lead_of`` and ``best_lead_sim`` on every row."""
     m = rejected.shape[0]
     row_idx = torch.arange(m, dtype=torch.int32, device=rejected.device)
     if sims is not None:
@@ -152,23 +169,33 @@ def _launch(rejected, force_lead, row_group, threshold, sims=None, row_pk=None,
     if rejected.dim() != 1:
         raise ValueError(f"leader-election kernel: rejected must be 1-d, got {rejected.dim()}-d")
     m = rejected.shape[0]
-    if sims is None and (row_pk is None or row_pop is None or row_pk.dim() != 2):
-        raise ValueError("leader-election kernel: without sims it needs row_pk (M, F8) and row_pop")
-    f8 = 0 if sims is not None else row_pk.shape[1]
-    order, skey = plan if plan is not None else (None, None)
+    if sims is not None:
+        raise ValueError("leader-election kernel: it takes the packed rows row_pk and row_pop, not sims")
+    if row_pk is None or row_pop is None or row_pk.dim() != 2:
+        raise ValueError("leader-election kernel: it needs row_pk (M, F8) and row_pop")
+    if plan is None or len(plan) not in (2, 3):
+        raise ValueError("leader-election kernel: it needs the step's sort plan (order, skey[, sel])")
+    order, skey = plan[:2]
+    sel = plan[2] if len(plan) == 3 else None
+    lp = order.shape[0] if order.dim() == 1 else -1
+    if sel is None and lp != m:
+        raise ValueError(f"leader-election kernel: a plan of {lp} rows for {m} rows needs sel")
+    f8 = row_pk.shape[1]
     dev = _check(
         {
             "rejected": (rejected, torch.bool, (m,)),
             "force_lead": (force_lead, torch.bool, (m,)),
             "row_group": (row_group, torch.int32, (m,)),
             "threshold": (threshold, torch.float32, ()),
-            "sims": (sims, torch.float32, (m, m)),
-            "row_pk": (None if sims is not None else row_pk, torch.uint8, (m, f8)),
-            "row_pop": (None if sims is not None else row_pop, torch.int32, (m,)),
-            "order": (order, torch.int64, (m,)),
-            "skey": (skey, torch.int32, (m,)),
+            "row_pk": (row_pk, torch.uint8, (m, f8)),
+            "row_pop": (row_pop, torch.int32, (m,)),
+            "order": (order, torch.int64, (lp,)),
+            "skey": (skey, torch.int32, (lp,)),
+            "sel": (sel, torch.int64, (m,)),
         },
     )
+    if sel is not None and lp < m:
+        raise ValueError(f"leader-election kernel: sel selects {m} rows of a plan of {lp}")
     leads = torch.empty((m,), dtype=torch.bool, device=dev)
     lead_of = torch.empty((m,), dtype=torch.int32, device=dev)
     best = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -176,16 +203,16 @@ def _launch(rejected, force_lead, row_group, threshold, sims=None, row_pk=None,
         return leads, lead_of, best
     lib = _lib()
     with torch.cuda.device(dev):
-        if plan is None:
-            skey, order = torch.sort(row_group, stable=True)
+        scratch = torch.empty(
+            (lib.bb_leader_election_scratch(m, 0 if sel is None else lp),),
+            dtype=torch.uint8, device=dev,
+        )
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = [None if t is None else t.data_ptr() for t in (sims, row_pk, row_pop)]
-        if sims is not None:
-            ptr[1] = ptr[2] = None
         err = lib.bb_leader_election(
-            rejected.data_ptr(), force_lead.data_ptr(), row_group.data_ptr(),
-            threshold.data_ptr(), *ptr, order.data_ptr(), skey.data_ptr(),
-            leads.data_ptr(), lead_of.data_ptr(), best.data_ptr(), m, f8, stream,
+            rejected.data_ptr(), force_lead.data_ptr(), threshold.data_ptr(),
+            row_pk.data_ptr(), row_pop.data_ptr(), order.data_ptr(), skey.data_ptr(),
+            None if sel is None else sel.data_ptr(), leads.data_ptr(), lead_of.data_ptr(),
+            best.data_ptr(), scratch.data_ptr(), m, f8, lp, stream,
         )
     if err != 0:
         raise RuntimeError(f"leader-election kernel launch failed: CUDA error {err}")
@@ -201,14 +228,17 @@ def elect_leaders(
     sims: torch.Tensor | None = None,  # (M, M) f32
     row_pk: torch.Tensor | None = None,  # (M, F8) uint8, where sims is None
     row_pop: torch.Tensor | None = None,  # (M,) int32, where sims is None
-    plan: tuple[torch.Tensor, torch.Tensor] | None = None,  # (order int64, skey int32)
+    plan: tuple[torch.Tensor, ...] | None = None,  # (order int64, skey int32[, sel int64])
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     r"""(leads (M,) bool, lead_of (M,) int32, best_lead_sim (M,) f32) of
-    the module's contract.
+    the module's contract: ``lead_of`` and ``best_lead_sim`` hold on the
+    rows with ``rejected & ~leads``; on the card every other row gets 0
+    and ``_NEG``, and the call takes ``row_pk``, ``row_pop`` and ``plan``
+    (the module's text says what the plan is).
 
     Replaces ``bblean_tpu/engine/batch.py:504-540``.  On the card one call
-    of ``bb_leader_election`` (``csrc/leader_election.cu``); on the CPU
-    :func:`elect_leaders_plain`.
+    of ``bb_leader_election`` (``csrc/leader_election.cu``, three launches);
+    on the CPU :func:`elect_leaders_plain`.
     """
     args = (rejected, force_lead, row_group, threshold, sims, row_pk, row_pop, plan)
     if rejected.device.type == "cpu":

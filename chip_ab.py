@@ -24,10 +24,10 @@ fit's wall and device busy time, the launches and device ms of
 ``torch.cumsum``'s outer-dimension scan, of the prefix-commit kernel
 (with the sum of its calls' bounds from the rows each call's mask lets
 in, logged by ``chip_smoke._PrefixWork`` in one more fit, not profiled,
-so the log's small kernels stay out of the profile) and of the leader
-election's and the pool and tile writes' kernels, its ten
-kernels of most device time, and the kernels whose device time differs
-most between the two; ``--cprofile`` fits once more per checkout
+so the log's small kernels stay out of the profile), of each launch of
+the leader election (the earlier design's two or this one's three) and of
+the pool and tile writes' kernels, its ten kernels of most device time,
+and the kernels whose device time differs most between the two; ``--cprofile`` fits once more per checkout
 under ``cProfile`` and prints the functions whose host time differs most;
 ``--events`` fits once more per checkout (ABBA) with CUDA events around
 each launch of the search and plan wrappers and prints their summed
@@ -50,6 +50,7 @@ import argparse
 import contextlib
 import cProfile
 import functools
+import inspect
 import json
 import os
 import pstats
@@ -64,6 +65,8 @@ import chip_smoke as cs
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The prefix-commit kernels of a checkout of the earlier three-launch design
 _THREE_LAUNCH_KERNELS = ("tails_kernel", "carry_kernel", "moments_kernel")
+# The leader election's launches in a checkout of the earlier design (a warp a row)
+_WARP_ELECTION_KERNELS = ("election_leads_kernel", "election_argmax_kernel")
 THRESHOLD = 0.3
 
 
@@ -173,14 +176,22 @@ def _profiled(label: str, tree_dir: str, dev_fps) -> dict:
         f"above bound {prefix_ms - bound:.1f} ms (with cand_ls read whole: bound "
         f"{bound_full:.1f} ms, above it {prefix_ms - bound_full:.1f} ms)"
     )
-    for label_k, names in (("leader election", cs.ELECTION_KERNELS), ("pool and tile writes", cs.WRITES_KERNELS)):
-        n, ms = kernels(*names)
-        cs.say(f"ab profiled {label}: {label_k} kernels {n} launches, {ms:.1f} device ms")
+    election_names = cs.ELECTION_KERNELS if kernels(cs.ELECTION_KERNELS[0])[0] else _WARP_ELECTION_KERNELS
+    election = {n: kernels(n) for n in election_names}
+    cs.say(
+        f"ab profiled {label}: leader election kernels {sum(v[0] for v in election.values())} "
+        f"launches, {sum(v[1] for v in election.values()):.1f} device ms ("
+        + ", ".join(f"{n} {v[0]} launches {v[1]:.2f} ms" for n, v in election.items()) + ")"
+    )
+    n, ms = kernels(*cs.WRITES_KERNELS)
+    cs.say(f"ab profiled {label}: pool and tile writes kernels {n} launches, {ms:.1f} device ms")
     for k in sorted(per, key=lambda k: -per[k])[:10]:
         cs.say(f"ab profiled {label} top kernel: {per[k]:.1f} ms, {count[k]} launches: {k[:160]}")
     return {
         "label": label, "wall_s": wall, "busy_ms": busy, "by_kernel_ms": per,
-        "launches": count, "prefix_commit": {
+        "launches": count,
+        "election": {n: {"launches": v[0], "device_ms": v[1]} for n, v in election.items()},
+        "prefix_commit": {
             "launches": launches, "device_ms": prefix_ms, "bound_ms": bound,
             "bound_full_ms": bound_full,
             "scan_outer_dim_launches": scans, "scan_outer_dim_ms": scan_ms,
@@ -273,9 +284,9 @@ def _round_walls(tree_dir: str, dev_fps, reps: int = 40) -> dict:
 
     def stage(batch: int):
         rows = engine._slice_prep_fp_rows_impl(dev_fps, 200_000 + batch * m, m, m, cs.N_FEATURES)
-        return engine._stage_step(
-            state, *rows, thr, tol, criterion="diameter", block=tree.route_block
-        )
+        # A checkout from before the row Gram went takes the criterion
+        kw = {"criterion": "diameter"} if "criterion" in inspect.signature(engine._stage_step).parameters else {}
+        return engine._stage_step(state, *rows, thr, tol, block=tree.route_block, **kw)
 
     bufs = stage(0)
     programs = {

@@ -30,8 +30,8 @@ replayed CUDA graphs (``engine/graphs.py``) are recorded from the capture's
 inputs after each replay.  ``--out`` writes the per-launch and per-window
 numbers to a JSON file.  The leader election's and the pool and tile
 writes' kernels (``csrc/leader_election.cu``, ``csrc/commit_writes.cu``,
-one call a round, two launches a call) get their calls and device ms per
-fit.  Imports no JAX.
+one call a round; three and two launches a call) get their calls and
+device ms per fit, each launch's too.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -255,9 +255,9 @@ def _prefix_summary(events, prefix) -> dict:
 
 
 def _round_kernel_summary(events, label: str, names: tuple[str, ...]) -> dict:
-    r"""A kernel of one call a round with two launches a call (``names``,
-    in launch order) in the profiled fit: its calls, their device ms per
-    fit and a call's mean, and each launch's device ms."""
+    r"""A kernel of one call a round with one launch of each of ``names``
+    (in launch order) a call in the profiled fit: its calls, their device
+    ms per fit and a call's mean, and each launch's device ms."""
     by = {n: [e for e in events if n in e.name] for n in names}
     calls = len(by[names[0]])
     if any(len(v) != calls for v in by.values()):

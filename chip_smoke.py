@@ -47,12 +47,15 @@ as the phase ends:
    accept masks, for the round's three calls and all six criteria
    (:func:`phase_prefix_commit`), and the look-back's stress cases;
 2f. the leader-election kernel (``ops/leader_election.py`` over
-   ``csrc/leader_election.cu``) bit-equal to its plain version in every
-   layout of ``ELECTION_LAYOUTS`` at 8,192 and 2,048 rows (the first
-   batch's single group of every row, a t = 0.3-like spread of groups,
-   ties, rows struck twice, no rejected row), with the step's sims and
-   plan, with sims alone and from the packed rows, and on ``REPLAYS``
-   replays of a captured call (:func:`phase_election`);
+   ``csrc/leader_election.cu``) bit-equal to its plain version on the rows
+   its contract covers (leads on every row, the best leader of each
+   rejected row that does not lead) in every layout of
+   ``ELECTION_LAYOUTS`` at 8,192 and 2,048 rows (the first batch's single
+   group of every row, a t = 0.3-like spread of groups, the fit's mid-fit
+   wide round, ties, rows struck twice, no rejected row), as a wide round
+   calls it (the step's sort plan) and as a narrow round does (its rows a
+   selection of a step four times as wide, through that step's plan), and
+   on ``REPLAYS`` replays of a captured call (:func:`phase_election`);
 2g. the pool and tile writes' kernel (``ops/commit_writes.py`` over
    ``csrc/commit_writes.cu``) bit-equal to its plain version, every table,
    in every layout of ``WRITES_LAYOUTS`` at 8,192 and 2,048 rows (merge
@@ -79,7 +82,8 @@ as the phase ends:
    round are held bit-equal (every output and table) to the same round
    dispatched on a clone of the state, whose calls of the prefix commits,
    the leader election and the pool and tile writes are then held to
-   their plain versions and timed (the kernels line's records);
+   their plain versions and timed (the kernels line's records), with the
+   fit's first election (the first batch: every row on one group);
 5. on the t = 0.3 tree of phase 4: ``predict_packed`` of 131,072 queries
    through the sorted kernel (batch 8192) and the per-row kernel (batch
    1000), identical and equal to a float64 Tanimoto against the packed
@@ -436,7 +440,7 @@ def _median_ms(fn, reps=15) -> float:
     return float(np.median(times))
 
 
-def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
+def _kernel_ms(fn, name="tile_search_kernel", reps=20, parts: dict | None = None) -> tuple[float, int]:
     r"""A kernel's own time on the card: mean duration of the launches of
     the kernel called ``name`` in a ``torch.profiler`` trace (CUPTI) of
     ``reps`` calls, without the host dispatch around it; returns the mean
@@ -447,14 +451,16 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
     of a kernel this short, so a trace that holds fewer than ``reps``
     records of a name is taken again, up to three times (once in a while
     a trace holds none at all, so a trace without the kernel is taken
-    again too); the last one counts if it holds at least half of them.  A
-    record too many is an error at once, and so is no record in any of the
-    three traces (a wrong name)."""
+    again too); the trace that kept the most counts if it holds at least
+    half of them.  A record too many is an error at once, and so is no
+    record in any of the three traces (a wrong name).  ``parts`` gets each
+    name's mean."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
+    best = None
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -463,18 +469,41 @@ def _kernel_ms(fn, name="tile_search_kernel", reps=20) -> tuple[float, int]:
         events = prof.key_averages()
         kern = {n: [e for e in events if n in e.key] for n in names}
         counts = {n: sum(e.count for e in k) for n, k in kern.items()}
-        count = min(counts.values())
-        if all(c == reps for c in counts.values()):
-            break
         if max(counts.values()) > reps:
             raise AssertionError(f"the profiler saw {counts} launches, not {reps} of each")
+        if best is None or min(counts.values()) > min(best[1].values()):
+            best = (kern, counts)
+        if all(c == reps for c in counts.values()):
+            break
         say(f"  profiler kept {counts} of {reps} records (attempt {attempt + 1})")
+    kern, counts = best
+    count = min(counts.values())
     if 2 * count < reps:
         raise AssertionError(f"the profiler saw {counts} launches, not {reps} of each")
-    ms = sum(
-        sum(e.device_time_total for e in k) / counts[n] / 1e3 for n, k in kern.items()
+    means = {n: sum(e.device_time_total for e in k) / counts[n] / 1e3 for n, k in kern.items()}
+    if parts is not None:
+        parts.update(means)
+    return sum(means.values()), count
+
+
+def _device_ms_a_call(fn, reps: int = 20) -> float:
+    r"""The device time of one call of ``fn`` (every kernel, copy and
+    fill it puts on the card, summed over a ``torch.profiler`` trace of
+    ``reps`` calls, over ``reps``): for work dispatched op by op, whose
+    wall between two CUDA events would count the host's gaps too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
     )
-    return ms, count
+    return busy / reps / 1e3
 
 
 def _bound(row_group, pending, tile_shape) -> dict:
@@ -514,11 +543,14 @@ def _check_equal(got, ref, what: str) -> float:
     return float((got[0] - ref[0]).abs().max())
 
 
-def _time_case(kernel, plain, bound, name="tile_search_kernel") -> dict:
+def _time_case(kernel, plain, bound, name="tile_search_kernel", parts=False) -> dict:
     r"""Kernel time (profiler), the same call with its host dispatch
-    (events), the plain version's time, and the bound with its share."""
+    (events), the plain version's time, and the bound with its share;
+    with ``parts``, each launch's time by name (``parts_ms``)."""
     out = dict(bound)
-    out["ms"], out["ms_over"] = _kernel_ms(kernel, name)
+    if parts:
+        out["parts_ms"] = {}
+    out["ms"], out["ms_over"] = _kernel_ms(kernel, name, parts=out.get("parts_ms"))
     out["call_ms"] = _median_ms(kernel)
     out["plain_ms"] = _median_ms(plain, reps=5)
     out["share"] = out["bound_ms"] / out["ms"]
@@ -1312,11 +1344,15 @@ def _prefix_timing_text(t: dict) -> str:
 
 
 # Phase 2f: the leader election's layouts (``election_case``), its
-# threshold (the fit's t = 0.3), the kernel's two launches as the profiler
-# names them and the graph replays of one case
-ELECTION_LAYOUTS = ("one group", "t=0.3 groups", "ties", "force lead", "none rejected")
+# threshold (the fit's t = 0.3), the kernel's three launches as the
+# profiler names them (the rejected rows listed by group, the leaders, the
+# best leaders), the ways a round calls it (the ``plan`` of
+# ``election_args``: a wide round's rows are the step's, a narrow round's a
+# selection of them) and the graph replays of a case
+ELECTION_LAYOUTS = ("one group", "t=0.3 groups", "fit round", "ties", "force lead", "none rejected")
 ELECTION_THRESHOLD = 0.3
-ELECTION_KERNELS = ("election_leads_kernel", "election_argmax_kernel")
+ELECTION_KERNELS = ("election_compact_kernel", "election_leads_kernel", "election_best_kernel")
+ELECTION_MODES = {"wide round": "wide", "narrow round": "narrow"}
 # Phase 2g: the pool and tile writes' layouts (``commit_writes_case``) and
 # the kernel's two launches; both phases replay one case this many times
 WRITES_LAYOUTS = ("t=0.3 runs", "one segment", "singletons", "edges")
@@ -1336,13 +1372,20 @@ def election_case(rng, m: int, f: int, layout: str) -> tuple:
     are noisy copies of their group's prototype (25% of bits set, 0-30% of
     them flipped), so that sims fall on both sides of the threshold; 3% of
     the rows are padding (not valid, routed to group 0 as the route leaves
-    them), 60% of the valid rows rejected, 5% of those struck twice."""
+    them), 60% of the valid rows rejected, 5% of those struck twice.
+    "fit round" is cut to the 1M t = 0.3 fit's mid-fit wide round: groups
+    as "t=0.3 groups" with half the rows moved to group 0 (about 69% of
+    the rows there: one group of a few thousand rows), 15% of group 0's
+    rows and 5% of the others' rejected (about 12% in all, most in group
+    0)."""
     if layout == "one group":
         k, group = 1, np.zeros(m, np.int64)
-    elif layout == "t=0.3 groups":
+    elif layout in ("t=0.3 groups", "fit round"):
         k = max(1, m // 5)
         w = 1.0 / np.arange(1, k + 1) ** 1.5
         group = rng.choice(k, m, p=w / w.sum())
+        if layout == "fit round":
+            group = np.where(rng.random(m) < 0.5, 0, group)
     else:
         k = max(1, m // 16)
         group = rng.integers(0, k, m)
@@ -1359,6 +1402,8 @@ def election_case(rng, m: int, f: int, layout: str) -> tuple:
         rejected = valid.copy()
     elif layout == "none rejected":
         rejected = np.zeros(m, bool)
+    elif layout == "fit round":
+        rejected = valid & (rng.random(m) < np.where(group == 0, 0.15, 0.05))
     else:
         rejected = valid & (rng.random(m) < 0.6)
     force = rejected & (rng.random(m) < (0.4 if layout == "force lead" else 0.05))
@@ -1368,88 +1413,150 @@ def election_case(rng, m: int, f: int, layout: str) -> tuple:
     )
 
 
-def election_args(case: tuple, device, wide: bool, plan: bool | None = None) -> tuple:
+def election_args(case: tuple, device, plan: str | None, sims: bool = False) -> tuple:
     r"""The arguments of ``elect_leaders`` on ``device`` for ``case``
-    (``election_case``'s arrays) as a round passes them: a wide round the
-    step's row sims (``tanimoto_gram`` of the rows) and, with ``plan``
-    (default: wide), the step's sort plan (the valid rows by group, padding
-    rows on a guard key); a narrow round the packed rows and popcounts."""
+    (``election_case``'s arrays): the packed rows and popcounts (as the
+    rounds pass them) or, with ``sims``, an all-pairs row Gram
+    (``tanimoto_gram`` of the rows: JAX's wide rounds' input, which only
+    the plain version takes).  ``plan``: "wide", the step's sort plan (the
+    valid rows by group, padding rows on a guard key), as a wide round
+    passes it; "narrow", the case's rows a selection ``sel`` of a step of
+    4M rows (the valid rows on rising step rows, the padding rows on
+    falling ones, the other step rows on random groups) and that step's
+    plan, ``(order, skey, sel)``, as a narrow round passes it; None, no
+    plan (the plain version needs none)."""
     from bblean_tpu_torch.ops.leader_election import tanimoto_gram
     from bblean_tpu_torch.ops.packing import unpack_fingerprints_device
 
     rejected, force, group, valid, row_pk, row_pop = (torch.from_numpy(a).to(device) for a in case)
     threshold = torch.tensor(ELECTION_THRESHOLD, dtype=torch.float32, device=device)
-    sims = pk = pop = order_skey = None
-    if wide:
-        sims = tanimoto_gram(unpack_fingerprints_device(row_pk).to(torch.int8), row_pop)
+    gram = pk = pop = None
+    if sims:
+        gram = tanimoto_gram(unpack_fingerprints_device(row_pk).to(torch.int8), row_pop)
     else:
         pk, pop = row_pk, row_pop
-    if wide if plan is None else plan:
-        skey, order = torch.sort(torch.where(valid, group, 1 << 30), stable=True)
-        order_skey = (order, skey)
-    return rejected, force, group, threshold, sims, pk, pop, order_skey
+    guard = 1 << 30
+    if plan == "wide":
+        skey, order = torch.sort(torch.where(valid, group, guard), stable=True)
+        plan = (order, skey)
+    elif plan == "narrow":
+        m, ok = len(case[0]), case[3]
+        rng = np.random.default_rng(m)
+        at = np.sort(rng.choice(4 * m, m, replace=False))
+        sel = np.empty(m, np.int64)
+        sel[ok] = at[: ok.sum()]
+        sel[~ok] = at[ok.sum():][::-1]
+        key = rng.integers(0, int(case[2].max()) + 2, 4 * m).astype(np.int32)
+        key[sel] = np.where(ok, case[2], guard)
+        skey, order = torch.sort(torch.from_numpy(key), stable=True)
+        plan = (order.to(device), skey.to(device), torch.from_numpy(sel).to(device))
+    return rejected, force, group, threshold, gram, pk, pop, plan
+
+
+def _pairs(rows_j: np.ndarray, group: np.ndarray, rows_i: np.ndarray) -> int:
+    r"""The pairs (j, i) with i < j on one group, j in ``rows_j`` and i in
+    ``rows_i``."""
+    order = np.argsort(group, kind="stable")
+    g, rj, ri = group[order], rows_j[order], rows_i[order].astype(np.int64)
+    starts = np.r_[True, g[1:] != g[:-1]]
+    excl = np.cumsum(ri) - ri
+    return int(((excl - np.maximum.accumulate(np.where(starts, excl, 0))) * rj).sum())
 
 
 def election_pairs(rejected: np.ndarray, group: np.ndarray) -> int:
-    r"""The pairs (j, i) an election's result depends on: i < j, i
-    rejected, both on one group."""
-    order = np.argsort(group, kind="stable")
-    g, r = group[order], rejected[order].astype(np.int64)
-    starts = np.r_[True, g[1:] != g[:-1]]
-    excl = np.cumsum(r) - r
-    return int((excl - np.maximum.accumulate(np.where(starts, excl, 0))).sum())
+    r"""The pairs (j, i) the full election's result depends on (the
+    earlier contract: every row's best leader): i < j, i rejected, both on one
+    group."""
+    return _pairs(np.ones(len(rejected), bool), group, rejected)
 
 
-def _election_bound(args: tuple) -> dict:
-    r"""The least time for one election: the sims of the counted pairs
-    (``election_pairs``, 4 B each) or, without sims, the rejected rows'
-    packed bits read once; the flags, groups, sort plan and popcounts read
-    and the three (M,) outputs written once, over 3.35 TB/s.  The
-    comparisons (and the popcounts) are far below the bytes."""
-    rejected, group, sims, pk = args[0], args[2], args[4], args[5]
-    m = rejected.shape[0]
-    rej = rejected.cpu().numpy()
-    pairs = election_pairs(rej, group.cpu().numpy())
-    n_bytes = m * (1 + 1 + 4 + 8 + 4) + m * (1 + 4 + 4)
-    if sims is not None:
-        n_bytes += 4 * pairs
-    else:
-        n_bytes += int(rej.sum()) * pk.shape[1] + 4 * m
+def election_contract_pairs(rejected: np.ndarray, group: np.ndarray, leads: np.ndarray) -> tuple[int, int]:
+    r"""The pairs the kernel's contract needs: the leads pairs (a rejected
+    j against the lower rejected rows of its group) and the best-leader
+    pairs (a rejected j that does not lead against the lower leaders of
+    its group, a subset of the former)."""
+    return _pairs(rejected, group, rejected), _pairs(rejected & ~leads, group, leads)
+
+
+def _election_bound(args: tuple, leads: torch.Tensor) -> dict:
+    r"""The least time for one election under the kernel's contract: the
+    rejected rows' packed bits and popcounts read once and each leads pair
+    (``election_contract_pairs``; the best-leader pairs are among them)
+    an AND + popcount of F bits, counted as F int8 multiply-adds (2
+    operations each, a stand-in: no binary-mma peak is published) over
+    1,979 TOP/s; the flags and the sort plan (its ``sel`` too) read and
+    the three (M,) outputs written once, over 3.35 TB/s; the larger of the
+    two.  ``bound_full_ms`` is the earlier, full contract's bound, the
+    same way: every row's pairs (``election_pairs``), every row's groups
+    read."""
+    rejected, group, pk, plan = args[0], args[2], args[5], args[7]
+    m, f = rejected.shape[0], pk.shape[1] * 8
+    rej, grp = rejected.cpu().numpy(), group.cpu().numpy()
+    n_rej = int(rej.sum())
+    lead_pairs, best_pairs = election_contract_pairs(rej, grp, leads.cpu().numpy())
+    full = election_pairs(rej, grp)
+    plan_bytes = plan[0].shape[0] * (8 + 4) + (m * 8 if len(plan) == 3 else 0)
+    rows = m * (1 + 1 + 4) + m * (1 + 4 + 4) + n_rej * (pk.shape[1] + 4)
+
+    def bound(n_bytes: int, pairs: int) -> tuple[float, str]:
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * f * pairs / INT8_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    bound_ms, bound_by = bound(rows + plan_bytes, lead_pairs)
     return {
-        "work": f"M={m} ({int(rej.sum())} rejected, {pairs} pairs{'' if sims is not None else ', packed rows'})",
-        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "pairs": pairs,
+        "work": (
+            f"M={m} ({n_rej} rejected, {lead_pairs} leads pairs, {best_pairs} best-leader "
+            f"pairs, {full} pairs of every row, {'wide' if len(plan) == 2 else 'narrow'} round's plan)"
+        ),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "pairs": lead_pairs, "best_pairs": best_pairs, "full_pairs": full,
+        "bound_full_ms": bound(rows + plan_bytes + 4 * m, full)[0],
     }
 
 
-def _election_equal(got: tuple, ref: tuple) -> bool:
-    r"""leads, lead_of and best_lead_sim equal bit for bit."""
+def _election_equal(got: tuple, ref: tuple, rejected: torch.Tensor) -> bool:
+    r"""The kernel's contract against the plain version's outputs: leads
+    equal on every row; lead_of and best_lead_sim bit-equal on the rows
+    with ``rejected & ~leads``, and 0 and ``_NEG`` on every other row."""
+    c = rejected & ~ref[0]
     return (
-        torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        and torch.equal(got[2].view(torch.int32), ref[2].view(torch.int32))
+        torch.equal(got[0], ref[0]) and torch.equal(got[1][c], ref[1][c])
+        and torch.equal(got[2][c].view(torch.int32), ref[2][c].view(torch.int32))
+        and bool((got[1][~c] == 0).all()) and bool((got[2][~c] == -2.0).all())
     )
 
 
 def _time_election(args: tuple) -> dict:
-    r"""One election timed (``_time_case``) over copies of its arguments in
-    turn, beside its bound (``_election_bound``); no PyTorch call computes
-    this function (library: none)."""
+    r"""One election timed (``_time_case``, each launch's share too) over
+    copies of its arguments in turn, beside the bound of its contract and
+    the full one (``_election_bound``); no PyTorch call computes this
+    function (library: none)."""
     from bblean_tpu_torch.ops import leader_election as le
 
-    sims, pk = args[4], args[5]
-    big = sims.numel() * 4 if sims is not None else pk.numel()
-    copies = _copies(args, big)
+    copies = _copies(args, args[5].numel())
     take = _in_turn(copies)
     t = _time_case(
         lambda: le.elect_leaders(*take()), lambda: le.elect_leaders_plain(*take()),
-        _election_bound(args), name=ELECTION_KERNELS,
+        _election_bound(args, le.elect_leaders_plain(*args)[0]), name=ELECTION_KERNELS,
+        parts=True,
     )
+    t["share_full"] = t["bound_full_ms"] / t["ms"]
     t["library_ms"] = None
     t["copies"] = len(copies)
     return t
 
 
+def _election_timing_text(t: dict) -> str:
+    return _timing_text(t) + (
+        f"; the full contract's bound {t['bound_full_ms']:.4g} ms, share {t['share_full']:.3f}; "
+        f"launches " + ", ".join(f"{k} {v:.4f}" for k, v in t["parts_ms"].items())
+        + f" ms; over {t['copies']} copies"
+    )
+
+
 def _election_check(args: tuple, where: str) -> None:
-    r"""The kernel's outputs equal the plain version's, one launch."""
+    r"""The kernel's outputs against the plain version's (``_election_equal``),
+    one launch."""
     from bblean_tpu_torch.ops import leader_election as le
 
     before = le.launches
@@ -1458,13 +1565,14 @@ def _election_check(args: tuple, where: str) -> None:
     torch.cuda.synchronize()
     if le.launches != before + 1:
         raise AssertionError(f"{where}: launches {before} -> {le.launches}")
-    if not _election_equal(got, ref):
+    if not _election_equal(got, ref, args[0]):
         raise AssertionError(f"{where}: leads, lead_of or best_lead_sim differ from the plain version's")
 
 
 def _election_replays(args: tuple) -> None:
     r"""One election captured in a CUDA graph, replayed ``REPLAYS`` times
-    over outputs spoiled before each: each equal to the plain version."""
+    over outputs spoiled before each (the scratch the capture took is
+    reused by every replay): each equal to the plain version."""
     from bblean_tpu_torch.ops import leader_election as le
 
     ref = le.elect_leaders_plain(*args)
@@ -1482,46 +1590,49 @@ def _election_replays(args: tuple) -> None:
         out[2].fill_(9.0)
         graph.replay()
         torch.cuda.synchronize()
-        if not _election_equal(out, ref):
+        if not _election_equal(out, ref, args[0]):
             raise AssertionError(f"phase 2f graph replay {k}: the election differs from the plain version's")
 
 
 def phase_election() -> dict:
     r"""Phase 2f: the leader-election kernel (``ops/leader_election.py``,
-    ``csrc/leader_election.cu``) bit-equal to its plain version (leads,
-    lead_of, best_lead_sim) in every layout of ``ELECTION_LAYOUTS`` at the
-    wide rounds' 8,192 rows and the narrow rounds' 2,048, 2048 bits: with
-    the step's sims and sort plan (a wide round), with sims and no plan
-    (the wrapper sorts), and from the packed rows (a narrow round, at
-    2,048 rows); then ``REPLAYS`` replays of a captured wide call.  Timed
-    on the t = 0.3-like layout, wide at 8,192 and narrow at 2,048 rows,
+    ``csrc/leader_election.cu``) against its plain version (leads on every
+    row, lead_of and best_lead_sim on the rows the round reads:
+    ``_election_equal``) in every layout of ``ELECTION_LAYOUTS`` at the
+    wide rounds' 8,192 rows and the narrow rounds' 2,048, 2048 bits, in
+    both modes of ``ELECTION_MODES``; then ``REPLAYS`` replays of a
+    captured call in each.  Timed on the "t=0.3 groups" and "fit round"
+    layouts, at 8,192 rows as a wide round and at 2,048 as a narrow round,
     over copies of the inputs in turn (4x the L2).  The kernels line's
     record is timed on a round of the fit (phase 4)."""
     rng = np.random.default_rng(31)
+    timed = {8192: "wide round", 2048: "narrow round"}
     timing = {}
-    replay = None
+    replay = []
     for m in (8192, 2048):
         for layout in ELECTION_LAYOUTS:
             case = election_case(rng, m, N_FEATURES, layout)
-            modes = {"wide": (True, True), "wide without plan": (True, False)}
-            if m == 2048:
-                modes["narrow"] = (False, False)
-            for mode, (wide, plan) in modes.items():
-                args = election_args(case, "cuda", wide, plan)
+            for mode, plan in ELECTION_MODES.items():
+                args = election_args(case, "cuda", plan)
                 _election_check(args, f"phase 2f M={m} {layout} {mode}")
-                if layout == "t=0.3 groups" and mode == ("wide" if m == 8192 else "narrow"):
-                    t = timing[f"M={m} {mode}"] = _time_election(args)
-                    say(f"phase 2f {mode} M={m} {layout}" + _timing_text(t) + f"; over {t['copies']} copies")
-                if layout == "t=0.3 groups" and m == 8192 and mode == "wide":
-                    replay = args
+                if layout in ("t=0.3 groups", "fit round") and mode == timed[m]:
+                    t = timing[f"M={m} {layout} {mode}"] = _time_election(args)
+                    say(f"phase 2f {mode} M={m} {layout}" + _election_timing_text(t))
+                if layout == "fit round":
+                    replay.append((mode, args))
+                del args
             say(
                 f"phase 2f leader election == plain: M={m} F={N_FEATURES} {layout} "
                 f"({int(case[0].sum())} rejected, {len(np.unique(case[2][case[0]]))} groups with "
-                f"rejected rows, {election_pairs(case[0], case[2])} pairs), "
-                f"{', '.join(modes)}"
+                f"rejected rows, {election_pairs(case[0], case[2])} pairs of every row), "
+                f"{', '.join(ELECTION_MODES)}"
             )
-    _election_replays(replay)
-    say(f"phase 2f leader election == plain on {REPLAYS} replays of a captured wide call")
+    for _mode, args in replay:
+        _election_replays(args)
+    say(
+        f"phase 2f leader election == plain on {REPLAYS} replays of a captured call, fit round: "
+        f"{', '.join(f'M={a[0].shape[0]} {mode}' for mode, a in replay)}"
+    )
     return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
 
 
@@ -2206,9 +2317,11 @@ class _PrefixWork:
     into ``samples``, and so is the first call of the leader election and
     of the pool and tile writes at each M (keys ("election", M) and
     ("writes", M); the writes' four tables as their shapes and dtypes,
-    to be made again as zeros)."""
+    to be made again as zeros).  With ``first``, the fit's first call of
+    the election (a dispatched wide round of the first batch: every row on
+    one group) is copied too (key ("election", "first"))."""
 
-    def __init__(self, log: bool = True) -> None:
+    def __init__(self, log: bool = True, first: bool = False) -> None:
         from bblean_tpu_torch.engine import graphs
         from bblean_tpu_torch.ops import prefix_commit as pc
         from bblean_tpu_torch.ops.merges import moment_count
@@ -2224,6 +2337,7 @@ class _PrefixWork:
             self.le_launch, self.cw_launch = le._launch, cw._launch
         self.moment_count = moment_count
         self.log = log
+        self.first = first
         self.seen: list[tuple[int, int, int, str, bool]] = []
         self.samples: dict[tuple[int, str], tuple] = {}
         self.sampling = False
@@ -2286,6 +2400,8 @@ class _PrefixWork:
     def _sample_election(self, *args):
         if self.sampling:
             self.samples.setdefault(("election", args[0].shape[0]), _to_host(args))
+        elif self.first and self.graphs.capturing is None:
+            self.samples.setdefault(("election", "first"), _to_host(args))
         return self.le_launch(*args)
 
     def _sample_writes(self, *args):
@@ -2378,15 +2494,15 @@ def _to_host(args):
     return args
 
 
-def _to_card(args):
+def _to_card(args, device="cuda"):
     r"""A sample's arguments on the card: tensors copied, tables given as
     ("zeros", shape, dtype) made as zeros."""
     if isinstance(args, torch.Tensor):
-        return args.to("cuda")
+        return args.to(device)
     if isinstance(args, tuple) and args and isinstance(args[0], str):
-        return torch.zeros(args[1], dtype=args[2], device="cuda")
+        return torch.zeros(args[1], dtype=args[2], device=device)
     if isinstance(args, tuple):
-        return tuple(_to_card(a) for a in args)
+        return tuple(_to_card(a, device) for a in args)
     return args
 
 
@@ -2532,7 +2648,7 @@ def phase_full_size() -> dict:
             # prefix commits
             with (
                 _RouteWork(plain) as work, _Rounds() as rounds,
-                _PrefixWork() if thr == 0.3 else contextlib.nullcontext() as prefix,
+                _PrefixWork(first=True) if thr == 0.3 else contextlib.nullcontext() as prefix,
                 _ReplayTwin(REPLAY_AT, prefix) if thr == 0.3 else contextlib.nullcontext() as twin,
             ):
                 tree = BatchTree(
@@ -2623,15 +2739,33 @@ def phase_full_size() -> dict:
     }
 
 
+def _election_fit(samples: dict, device="cuda") -> dict:
+    r"""The leader elections phase 4 sampled (the mid-fit wide and narrow
+    rounds' calls and the fit's first, every row on one group) held to
+    the plain version and timed; returns the timings by call."""
+    timing = {}
+    for key, name in ((8192, "M=8192"), (2048, "M=2048"), ("first", "first round")):
+        args = _to_card(samples[("election", key)], device)
+        _election_check(args, f"phase 4 leader election, {name} of the fit")
+        t = timing[name] = _time_election(args)
+        say(f"phase 4 leader election == plain on the t=0.3 fit's {name}" + _election_timing_text(t))
+        del args
+        torch.cuda.empty_cache()
+    return timing
+
+
 def phase_prefix_fit(samples: dict) -> dict:
     r"""The prefix-commit calls of one wide and one narrow round of phase
     4's t = 0.3 fit (the rounds its ``_ReplayTwin`` ran again, about the
     middle of the fit), held bit-equal to the plain version and timed as
-    in phase 2e (``_time_prefix``): the traffic of a real round."""
+    in phase 2e (``_time_prefix``): the traffic of a real round.  The
+    same rounds' leader elections and pool and tile writes, and the fit's
+    first election, are held and timed as in phases 2f and 2g."""
     from bblean_tpu_torch.ops import prefix_commit as pc
 
     want = {(m, call) for m in (8192, 2048) for call in ("screen", "pass 1", "pass 2")}
     want |= {(kind, m) for kind in ("election", "writes") for m in (8192, 2048)}
+    want.add(("election", "first"))
     if set(samples) != want:
         raise AssertionError(f"phase 4 sampled the calls {sorted(samples, key=str)}, not {sorted(want, key=str)}")
     timing = {}
@@ -2650,16 +2784,8 @@ def phase_prefix_fit(samples: dict) -> dict:
             f"({args[0]}{segs})" + _prefix_timing_text(t)
         )
     timing["fit"] = timing["M=8192 pass 1"]  # the kernels line's record
-    election, writes = {}, {}
+    election, writes = _election_fit(samples), {}
     for m in (8192, 2048):
-        args = _to_card(samples[("election", m)])
-        _election_check(args, f"phase 4 leader election, round of the fit M={m}")
-        t = election[f"M={m}"] = _time_election(args)
-        say(
-            f"phase 4 leader election == plain on a round of the t=0.3 fit, M={m} "
-            f"({'sims' if args[4] is not None else 'packed rows'})" + _timing_text(t)
-            + f"; over {t['copies']} copies"
-        )
         args = _to_card(samples[("writes", m)])
         _writes_check(args, f"phase 4 pool and tile writes, round of the fit M={m}")
         t = writes[f"M={m}"] = _time_writes(args)
@@ -4008,6 +4134,7 @@ def _kernel_record(name, source, replaces, launches, phase, library_ms=None) -> 
         "bound_by": t["bound_by"],
         "share": t["share"],
         "library_ms": library_ms,
+        **{k: t[k] for k in ("bound_full_ms", "share_full") if k in t},
     }
 
 

@@ -130,7 +130,8 @@ def test_route_groups_matches_jax(captured) -> None:
 @pytest.fixture(scope="module")
 def one_round(captured):
     r"""One insert round from the captured state in both engines (routed
-    rows, step-constant row sims in the JAX call; the port's sorted plan)."""
+    rows; the port's sorted plan, its election from the packed rows: the
+    wide rounds' form)."""
     _fps, state, jrows, trows = captured
     (jthr, jtol), (tthr, ttol) = _scalars()
     pending = jrows[1] > 0
@@ -155,7 +156,6 @@ def one_round(captured):
         tstate, tpending, torch.full((M,), -1, dtype=torch.int32),
         torch.zeros(M, dtype=torch.int32), tgroup, *trows, tthr, ttol,
         criterion="diameter", search_plan=plan,
-        row_sims=tb._tanimoto_gram(trows[2], trows[4]),
     )
     return (
         (_jax_np(jstate), np.asarray(jpend), np.asarray(jassigned), np.asarray(jstrikes)),

@@ -6,8 +6,9 @@ rows and more work units than SMs) and the prefix-commit kernel (the
 insert round's screen and two passes, all six criteria, every layout of
 segments, sums past 2^16, the vote's edge, several column tiles, with and
 without ``need``, the look-back's stress cases, inside a captured CUDA
-graph), the leader election (every layout, with sims and a plan, with sims
-alone, from the packed rows, in a captured graph) and the pool and tile
+graph), the leader election (every layout, from the packed rows or sims,
+with and without a plan, one group of 8,192 rejected rows, tile edges,
+ties across tiles, byte tails, in a captured graph) and the pool and tile
 writes (every layout, byte tails, writes past capacity, in a captured
 graph) against their plain versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
@@ -269,7 +270,7 @@ def test_replayed_round_equals_dispatched_round(cuda) -> None:
     valid[-7:] = False
     rows = engine._prep_fp_rows(torch.from_numpy(fps[8000 : 8000 + m]).to(cuda), valid, 2048)
     thr, tol = tree._scalars()
-    bufs = engine._stage_step(tree.state, *rows, thr, tol, criterion="diameter", block=tree.route_block)
+    bufs = engine._stage_step(tree.state, *rows, thr, tol, block=tree.route_block)
     tables = engine._tables(tree.state)
     twin_tables = tuple(t.clone() for t in tables)
     twin_bufs = graphs.Buffers((k, v.clone()) for k, v in bufs.items())
@@ -874,38 +875,98 @@ def test_prefix_commit_wrapper_rejects_bad_inputs(cuda) -> None:
             pc.prefix_commit_moments(*args[:i], t, *args[i + 1:])
 
 
-@pytest.mark.parametrize("layout", ["one group", "t=0.3 groups", "ties", "force lead", "none rejected"])
+@pytest.mark.parametrize("layout", ["one group", "t=0.3 groups", "fit round", "ties", "force lead", "none rejected"])
 @pytest.mark.parametrize("m", [8192, 2048])
 def test_leader_election_kernel_matches_plain(cuda, m, layout) -> None:
-    r"""Every election layout at the wide and narrow rounds' widths: with
-    the step's sims and plan, with sims and no plan, and (at 2,048 rows)
-    from the packed rows; leads, lead_of and best_lead_sim bit-equal to
-    the plain version, one launch a call."""
+    r"""Every election layout at the wide and narrow rounds' widths, in
+    both ways a round calls it (the step's plan; a wider step's plan
+    through the selection of its rows): leads on every row and lead_of /
+    best_lead_sim on the rejected rows that do not lead bit-equal to the
+    plain version, 0 / _NEG on the others, one launch a call."""
     import chip_smoke
 
     case = chip_smoke.election_case(np.random.default_rng(43), m, 2048, layout)
-    modes = [(True, True), (True, False)] + ([(False, False)] if m == 2048 else [])
-    for wide, plan in modes:
-        chip_smoke._election_check(chip_smoke.election_args(case, cuda, wide, plan), f"{layout} {wide} {plan}")
+    for mode, plan in chip_smoke.ELECTION_MODES.items():
+        chip_smoke._election_check(chip_smoke.election_args(case, cuda, plan), f"{layout} {mode}")
 
 
-@pytest.mark.parametrize("m,f", [(300, 100), (1, 2048)])
+@pytest.mark.parametrize("m,f", [(300, 100), (1, 2048), (2048, 264), (2048, 100)])
 def test_leader_election_kernel_edges(cuda, m, f) -> None:
-    r"""A byte tail in the packed rows (100 bits: read as bytes) and a
-    single row."""
+    r"""Byte tails in the packed rows (264 and 100 bits: staged a byte at a
+    time) and a single row."""
     import chip_smoke
 
     case = chip_smoke.election_case(np.random.default_rng(44), m, f, "t=0.3 groups")
-    for wide, plan in ((True, True), (False, False)):
-        chip_smoke._election_check(chip_smoke.election_args(case, cuda, wide, plan), f"M={m} F={f}")
+    for plan in ("wide", "narrow"):
+        chip_smoke._election_check(chip_smoke.election_args(case, cuda, plan), f"M={m} F={f} {plan}")
+
+
+def _election_groups(rng, sizes, f=2048, dup=False, force=0.0):
+    r"""An election case of ``election_case``'s form whose rows all are
+    valid and rejected, on groups of the given sizes (group g holds
+    sizes[g] rows, interleaved at random); ``dup``: every row of a group a
+    copy of its prototype (every pair ties at 1.0)."""
+    group = rng.permutation(np.repeat(np.arange(len(sizes)), sizes)).astype(np.int32)
+    m = len(group)
+    protos = rng.random((len(sizes), f)) < 0.25
+    flip = rng.random((m, f)) < (0.0 if dup else 0.12)
+    bits = protos[group] ^ flip
+    ones = np.ones(m, bool)
+    return (
+        ones, rng.random(m) < force, group, ones, np.packbits(bits, axis=1),
+        bits.sum(1).astype(np.int32),
+    )
+
+
+def test_leader_election_one_group_of_8192_rejected_rows(cuda) -> None:
+    r"""A fit's first batch: 8,192 rejected rows on one group, 33.5M pairs
+    over 32,896 tiles, on a wide round's plan and on a narrow round's."""
+    import chip_smoke
+
+    case = _election_groups(np.random.default_rng(50), [8192])
+    assert chip_smoke.election_pairs(case[0], case[2]) == 8192 * 8191 // 2
+    for plan in ("wide", "narrow"):
+        chip_smoke._election_check(chip_smoke.election_args(case, cuda, plan), f"one group {plan}")
+
+
+def test_leader_election_rejected_rows_on_tile_edges(cuda) -> None:
+    r"""Groups whose rejected rows end on, just before and just after the
+    kernel's tile edges (32 rows a side): 1, 31, 32, 33, 63, 64, 65, 96 and
+    97 rows, and a few struck twice."""
+    import chip_smoke
+
+    case = _election_groups(np.random.default_rng(51), [1, 31, 32, 33, 63, 64, 65, 96, 97], force=0.1)
+    for mode, plan in chip_smoke.ELECTION_MODES.items():
+        chip_smoke._election_check(chip_smoke.election_args(case, cuda, plan), f"tile edges {mode}")
+
+
+def test_leader_election_ties_across_tiles(cuda) -> None:
+    r"""Every row of a group a copy of one prototype (each pair ties at
+    1.0), groups of 200 and 90 rows over several tiles, half the rows
+    struck twice: each row's leader is its lowest leader below it, across
+    tiles and blocks."""
+    import chip_smoke
+    from bblean_tpu_torch.ops import leader_election as le
+
+    case = _election_groups(np.random.default_rng(52), [200, 90], dup=True, force=0.5)
+    for mode, plan in chip_smoke.ELECTION_MODES.items():
+        args = chip_smoke.election_args(case, cuda, plan)
+        chip_smoke._election_check(args, f"ties {mode}")
+        leads, lead_of, best = (t.cpu().numpy() for t in le.elect_leaders(*args))
+        c = ~leads
+        assert c.sum() > 50 and (best[c] == 1.0).all()
+        group = case[2]
+        for j in np.flatnonzero(c):
+            assert lead_of[j] == np.flatnonzero(leads & (group == group[j]))[0]
 
 
 def test_leader_election_in_a_cuda_graph(cuda) -> None:
     import chip_smoke
 
-    case = chip_smoke.election_case(np.random.default_rng(45), 2048, 2048, "t=0.3 groups")
-    chip_smoke._election_replays(chip_smoke.election_args(case, cuda, True))
-    chip_smoke._election_replays(chip_smoke.election_args(case, cuda, False))
+    for layout in ("t=0.3 groups", "fit round"):
+        case = chip_smoke.election_case(np.random.default_rng(45), 2048, 2048, layout)
+        for plan in ("wide", "narrow"):
+            chip_smoke._election_replays(chip_smoke.election_args(case, cuda, plan))
 
 
 def test_leader_election_wrapper_rejects_bad_inputs(cuda) -> None:
@@ -913,19 +974,28 @@ def test_leader_election_wrapper_rejects_bad_inputs(cuda) -> None:
     from bblean_tpu_torch.ops import leader_election as le
 
     case = chip_smoke.election_case(np.random.default_rng(46), 64, 64, "t=0.3 groups")
-    args = chip_smoke.election_args(case, cuda, True)
+    args = chip_smoke.election_args(case, cuda, "wide")
+    order, skey, sel = chip_smoke.election_args(case, cuda, "narrow")[7]
     bad = {
         0: args[0].to(torch.int32),  # rejected's dtype
         2: args[2].cpu(),  # another device
         3: args[3][None],  # the threshold's shape
-        4: args[4].t(),  # not contiguous
+        4: torch.zeros((64, 64), dtype=torch.float32, device=cuda),  # sims: the kernel takes packed rows
+        5: args[5].t(),  # not contiguous
+        6: None,  # no popcounts
         7: (args[7][0][:-1], args[7][1][:-1]),  # the plan's length
     }
     for i, t in bad.items():
         with pytest.raises(ValueError):
             le.elect_leaders(*args[:i], t, *args[i + 1:])
-    with pytest.raises(ValueError):
-        le.elect_leaders(*args[:4], None, None, None, None)  # no sims and no packed rows
+    for plan in (
+        None,  # no plan
+        (order, skey),  # a wider step's plan without the selection
+        (order, skey, sel.to(torch.int32)),  # the selection's dtype
+        (order, skey, sel[:-1]),  # the selection's length
+    ):
+        with pytest.raises(ValueError):
+            le.elect_leaders(*args[:7], plan)
 
 
 @pytest.mark.parametrize("layout", ["t=0.3 runs", "one segment", "singletons", "edges"])

@@ -74,7 +74,7 @@ def test_round_and_split_bodies_read_nothing_on_the_host(monkeypatch) -> None:
     _jrows, trows = _rows(fps, 0)
     tstate = state_from_numpy(state, "cpu")
     thr, tol = torch.tensor(0.3), torch.tensor(0.05)
-    bufs = tb._stage_step(tstate, *trows, thr, tol, criterion="diameter", block=M)
+    bufs = tb._stage_step(tstate, *trows, thr, tol, block=M)
     tables = tb._tables(tstate)
     counts = state["g_count"][: int(state["g_num"])]
     fanout = int(np.sort(counts)[-3])
