@@ -36,16 +36,17 @@ def entry(device: DeviceLike = "cuda"):
     row_cent = torch.from_numpy(fps.astype(np.int8)).to(dev)
     row_pk = torch.from_numpy(np.packbits(fps, axis=-1)).to(dev)
     row_pop = torch.from_numpy(fps.sum(1).astype(np.int32)).to(dev)
+    row_single = torch.ones((m,), dtype=torch.bool, device=dev)
     thr = torch.tensor(0.65, dtype=torch.float32, device=dev)
     tol = torch.tensor(0.05, dtype=torch.float32, device=dev)
 
-    def step(state, row_ls, row_n, row_cent, row_pk, row_pop):
+    def step(state, row_ls, row_n, row_cent, row_pk, row_pop, row_single):
         return _batch_step_impl(
-            state, row_ls, row_n, row_cent, row_pk, row_pop, thr, tol,
+            state, row_ls, row_n, row_cent, row_pk, row_pop, row_single, thr, tol,
             criterion="diameter", block=512, max_rounds=8,
         )
 
-    return step, (state, row_ls, row_n, row_cent, row_pk, row_pop)
+    return step, (state, row_ls, row_n, row_cent, row_pk, row_pop, row_single)
 
 
 def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:

@@ -427,6 +427,7 @@ def _insert_round(
     row_cent: torch.Tensor,
     row_pk: torch.Tensor,
     row_pop: torch.Tensor,
+    row_single: torch.Tensor,
     threshold: torch.Tensor,
     tolerance: torch.Tensor,
     *,
@@ -449,6 +450,9 @@ def _insert_round(
     step's plan: ``(order, keys)`` of ``search_plan``, else
     ``election_plan``, ``(order, keys, sel)`` of a round over the step's
     rows ``sel`` (``ops/leader_election.py``; the CPU ignores it).
+    ``row_single`` marks the rows whose sums are the bits of ``row_pk``
+    (set by the step's row producers; the writes' kernel reads those rows
+    packed).
 
     Updates the state's tables in place; returns (state with its new
     counters, pending, assigned, strikes).
@@ -667,30 +671,20 @@ def _insert_round(
     cell = tgt_group * tile + tgt_pos
 
     # ---- 8. sparse linear-sum pool: promotions (old bits + this round's
-    # committed rows) and multi-member creations; merge updates are
-    # pre-aggregated per candidate segment (one writer row each).  With
-    # step 7's tile cells, written by ops/commit_writes.py (one kernel on
-    # the card) ----
+    # committed rows) and multi-member creations, their pool refs, and the
+    # cluster counts; merge updates are pre-aggregated per candidate
+    # segment (one writer row each).  With step 7's tile cells, written by
+    # ops/commit_writes.py (one kernel on the card) ----
     stage("pool writes")
-    best_s = best[aorder]
     commit_writes(
-        state.ls, state.t_pk, state.t_pops, state.t_slot, state.group, state.pos,
-        row_ls, gj_ls, aorder, agrp, committed_sorted, promo_sorted, adder_sorted,
-        ref_promo_sorted, cand_ref_s, best_s, jseg, join_ok, fits, create_pool,
-        ref_create, create_commit, created_n, cell, new_slot,
+        state.ls, state.t_pk, state.t_pops, state.t_slot, state.ls_ref, state.n,
+        state.group, state.pos, row_ls, row_pk, gj_ls, row_single, row_n, aorder, agrp,
+        committed_sorted, seg_any, promo_sorted, adder_sorted, ref_promo_sorted,
+        cand_ref_s, best[aorder], jseg, join_ok, fits, create_pool, ref_create,
+        create_commit, created_n, pool_created_n, cell, new_slot,
     )
     del gj_ls
-    agrp_l = agrp.long()
     num_ls = state.num_ls + n_promo + _isum(create_pool_try & create_ok)
-    _drop_set_(state.ls_ref, best_s, ref_promo_sorted, promo_sorted)
-    _drop_set_(state.ls_ref, new_slot, ref_create, create_pool)
-
-    # Cluster counts, pre-aggregated the same way
-    seg_add_n = _segment_sum(
-        torch.where(committed_sorted, row_n_a, 0), agrp, m
-    )[agrp_l]
-    _drop_add_(state.n, best_s, seg_add_n, seg_any)
-    _drop_add_(state.n, new_slot, pool_created_n, create_commit)
 
     assigned = torch.where(commit, slot_of_row, assigned)
     pending = pending & ~commit
@@ -711,6 +705,7 @@ def _batch_step_impl(
     row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
     row_pk: torch.Tensor,  # (M, F8) uint8 packed centroid
     row_pop: torch.Tensor,  # (M,) int32
+    row_single: torch.Tensor,  # (M,) bool: row_ls is the bits of row_pk
     threshold: torch.Tensor,  # () f32
     tolerance: torch.Tensor,  # () f32
     *,
@@ -736,8 +731,8 @@ def _batch_step_impl(
     """
     m = row_ls.shape[0]
     bufs = _stage_step(
-        state, row_ls, row_n, row_cent, row_pk, row_pop, threshold, tolerance,
-        block=block,
+        state, row_ls, row_n, row_cent, row_pk, row_pop, row_single, threshold,
+        tolerance, block=block,
     )
     tables = _tables(state)
     wide = functools.partial(_wide_round, criterion=criterion)
@@ -766,6 +761,7 @@ def _stage_step(
     row_cent: torch.Tensor,
     row_pk: torch.Tensor,
     row_pop: torch.Tensor,
+    row_single: torch.Tensor,
     threshold: torch.Tensor,
     tolerance: torch.Tensor,
     *,
@@ -788,7 +784,7 @@ def _stage_step(
     )
     inputs = dict(
         row_ls=row_ls, row_n=row_n, row_cent=row_cent, row_pk=row_pk,
-        row_pop=row_pop, threshold=threshold, tolerance=tolerance,
+        row_pop=row_pop, row_single=row_single, threshold=threshold, tolerance=tolerance,
         row_group=row_group, srows=row_pk[order], spops=row_pop[order],
         skey=skey, order=order, items=items, pending=pending0,
         **{c: getattr(state, c) for c in _COUNTERS},
@@ -824,8 +820,9 @@ def _wide_round(
     state, pending, assigned, strikes = _insert_round(
         _state_of(tables, bufs), bufs["pending"], bufs["assigned"],
         bufs["strikes"], bufs["row_group"], bufs["row_ls"], bufs["row_n"],
-        bufs["row_cent"], bufs["row_pk"], bufs["row_pop"], bufs["threshold"],
-        bufs["tolerance"], criterion=criterion, search_plan=tuple(bufs[k] for k in _PLAN),
+        bufs["row_cent"], bufs["row_pk"], bufs["row_pop"], bufs["row_single"],
+        bufs["threshold"], bufs["tolerance"], criterion=criterion,
+        search_plan=tuple(bufs[k] for k in _PLAN),
     )
     return (pending, assigned, strikes) + tuple(getattr(state, c) for c in _COUNTERS)
 
@@ -841,7 +838,10 @@ def _narrow_round(
     # Compact the pending rows to the front (stable: original order kept,
     # which is all the round logic depends on)
     sel = torch.sort((~pending).to(torch.uint8), stable=True).indices[:narrow]
-    rows = [bufs[k][sel] for k in ("row_group", "row_ls", "row_n", "row_cent", "row_pk", "row_pop")]
+    rows = [
+        bufs[k][sel]
+        for k in ("row_group", "row_ls", "row_n", "row_cent", "row_pk", "row_pop", "row_single")
+    ]
     state, sub_pending, sub_assigned, sub_strikes = _insert_round(
         _state_of(tables, bufs), pending[sel],
         torch.full((narrow,), -1, dtype=_I32, device=sel.device), strikes[sel],
@@ -1081,7 +1081,8 @@ def _slice_prep_fp_rows_impl(
 ):
     r"""Slice ``m`` rows at ``start`` (clamped into range, like
     ``lax.dynamic_slice``), unpack, and build the CF rows; rows at rank
-    ``>= n_valid`` are padding."""
+    ``>= n_valid`` are padding.  Every valid row is one fingerprint, so
+    its flag (``row_single``, the last of the rows) is ``valid``."""
     start = min(max(start, 0), dev_fps.shape[0] - m)
     packed = dev_fps[start : start + m]
     valid = torch.arange(m, device=dev_fps.device) < n_valid
@@ -1091,7 +1092,7 @@ def _slice_prep_fp_rows_impl(
     row_cent = row_ls.to(_CENT_DT)
     row_pk = torch.where(valid[:, None], packed, 0)
     row_pop = _isum(row_ls, -1)
-    return row_ls, row_n, row_cent, row_pk, row_pop
+    return row_ls, row_n, row_cent, row_pk, row_pop, valid
 
 
 def _stage_tail(dev_fps: torch.Tensor, n_valid: int, window: int) -> torch.Tensor:
@@ -1105,13 +1106,14 @@ def _stage_tail(dev_fps: torch.Tensor, n_valid: int, window: int) -> torch.Tenso
 
 
 def _prep_fp_rows(packed: torch.Tensor, valid: torch.Tensor, n_features: int):
-    r"""CF-row prep from packed fingerprints (n = 1 rows)."""
+    r"""CF-row prep from packed fingerprints (n = 1 rows; ``row_single``,
+    the last of the rows, is ``valid``)."""
     bits = unpack_fingerprints_device(packed, n_features)
     row_ls = bits.to(_I32)
     row_n = valid.to(_I32)
     row_cent = bits.to(_CENT_DT)
     row_pop = _isum(row_ls, -1)
-    return row_ls, row_n, row_cent, packed, row_pop
+    return row_ls, row_n, row_cent, packed, row_pop, valid
 
 
 def _scan_fit_packed_impl(
@@ -1172,11 +1174,16 @@ def _reconstruct_ls_chunk(
 
 
 def _prep_buffer_rows(row_ls: torch.Tensor, row_n: torch.Tensor):
-    r"""CF-row prep from pre-aggregated buffers (majority centroid rows)."""
+    r"""CF-row prep from pre-aggregated buffers (majority centroid rows).
+    A row is flagged ``row_single`` (the last of the rows) where it is one
+    fingerprint: a count of 1 and sums equal to its packed bits (a user's
+    CF row or another shard's cluster may hold a count of 1 with other
+    sums)."""
     cent = majority_centroid_from_sums(row_ls, row_n.clamp_min(1))
     row_pk = pack_fingerprints_device(cent)
     row_pop = _isum(cent.to(_I32), -1)
-    return row_ls, row_n, cent.to(_CENT_DT), row_pk, row_pop
+    row_single = (row_n == 1) & (row_ls == cent).all(-1)
+    return row_ls, row_n, cent.to(_CENT_DT), row_pk, row_pop, row_single
 
 
 def _predict_step(
@@ -1693,7 +1700,7 @@ class BatchTree:
     def _retry_batch(self, q: dict) -> None:
         r"""Drain a batch whose step exhausted max_rounds (rare): split, mask
         the already-assigned rows, re-step until done."""
-        row_ls, row_n, row_cent, row_pk, row_pop = q["rows"]
+        row_ls, row_n, row_cent, row_pk, row_pop, row_single = q["rows"]
         host_valid = q["host_valid"]
         assigned_dev, count = self._row_slots[q["slot_idx"]]
         final = np.array(_host(assigned_dev))
@@ -1706,7 +1713,7 @@ class BatchTree:
             row_n = torch.where(torch.from_numpy(missing).to(self.device), row_n, 0)
             self._ensure_capacity(self.batch_size)
             self.state, assigned, _enc = _batch_step_impl(
-                self.state, row_ls, row_n, row_cent, row_pk, row_pop,
+                self.state, row_ls, row_n, row_cent, row_pk, row_pop, row_single,
                 thr, tol, criterion=self.merge_criterion,
                 block=self.route_block, max_rounds=self.max_rounds,
                 narrow=self.batch_size // 4,
@@ -1741,7 +1748,7 @@ class BatchTree:
                 if not missing.any():
                     break
                 self._split_oversized_groups(drain=True)
-                row_ls, row_n, row_cent, row_pk, row_pop = _slice_prep_fp_rows_impl(
+                row_ls, row_n, row_cent, row_pk, row_pop, row_single = _slice_prep_fp_rows_impl(
                     q["dev_fps"], q["start"] + i * m,
                     max(0, min(m, q["n_valid"] - i * m)), m, self.n_features,
                 )
@@ -1750,7 +1757,7 @@ class BatchTree:
                 )
                 self._ensure_capacity(m)
                 self.state, assigned, _enc = _batch_step_impl(
-                    self.state, row_ls, row_n, row_cent, row_pk, row_pop,
+                    self.state, row_ls, row_n, row_cent, row_pk, row_pop, row_single,
                     thr, tol, criterion=self.merge_criterion,
                     block=self.route_block, max_rounds=self.max_rounds,
                     narrow=m // 4,

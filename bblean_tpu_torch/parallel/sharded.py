@@ -964,7 +964,7 @@ class ShardedForest:
                         continue  # a mass-less step changes nothing
                     dev = self.devices[dv]
                     thr, tol = self._scalars(dev)
-                    row_ls, row_n, row_cent, row_pk, row_pop = (
+                    row_ls, row_n, row_cent, row_pk, row_pop, row_single = (
                         _slice_prep_fp_rows_impl(
                             q["blocks"][dv][q["w"]], i * m, int(nv[dv]), m,
                             self.n_features,
@@ -974,8 +974,8 @@ class ShardedForest:
                         torch.from_numpy(missing[dv]).to(dev), row_n, 0
                     )
                     self.states[dv], assigned, _enc = _batch_step_impl(
-                        st, row_ls, row_n, row_cent, row_pk, row_pop, thr,
-                        tol, narrow=m // 4, **self._step_kw(),
+                        st, row_ls, row_n, row_cent, row_pk, row_pop, row_single,
+                        thr, tol, narrow=m // 4, **self._step_kw(),
                     )
                     final[dv, seg][missing[dv]] = _host(assigned)[missing[dv]]
                 n_miss = int(missing.sum(1).max(initial=0))

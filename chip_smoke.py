@@ -60,7 +60,8 @@ as the phase ends:
    ``csrc/commit_writes.cu``) bit-equal to its plain version, every table,
    in every layout of ``WRITES_LAYOUTS`` at 8,192 and 2,048 rows (merge
    segments of thousands of rows, the vote's edge, writes past capacity,
-   the guard row) and on ``REPLAYS`` replays of a captured call
+   the guard row, rows read packed and as int32 sums in one segment) and
+   on ``REPLAYS`` replays of a captured call
    (:func:`phase_writes`); 2e-2g timed as 2d is, over copies of their
    inputs taken in turn (4x the L2).
    ``python3 chip_smoke.py --only kernels`` runs phases 1 and 2-2g alone;
@@ -1355,8 +1356,8 @@ ELECTION_KERNELS = ("election_compact_kernel", "election_leads_kernel", "electio
 ELECTION_MODES = {"wide round": "wide", "narrow round": "narrow"}
 # Phase 2g: the pool and tile writes' layouts (``commit_writes_case``) and
 # the kernel's two launches; both phases replay one case this many times
-WRITES_LAYOUTS = ("t=0.3 runs", "one segment", "singletons", "edges")
-WRITES_KERNELS = ("writes_sets_kernel", "writes_adds_tiles_kernel")
+WRITES_LAYOUTS = ("t=0.3 runs", "one segment", "singletons", "edges", "mixed")
+WRITES_KERNELS = ("writes_sets_kernel", "writes_adds_cells_kernel")
 REPLAYS = 20
 
 
@@ -1638,11 +1639,12 @@ def phase_election() -> dict:
 
 # The arguments of ``commit_writes`` in order: the tables it updates in
 # place, then what it reads
-WRITES_TABLES = ("ls", "t_pk", "t_pops", "t_slot")
+WRITES_TABLES = ("ls", "t_pk", "t_pops", "t_slot", "ls_ref", "n")
 WRITES_ARGS = WRITES_TABLES + (
-    "group", "pos", "row_ls", "gj_ls", "aorder", "agrp", "committed", "promo", "adder",
-    "ref_promo", "cand_ref", "best_s", "jseg", "join_ok", "fits", "create_pool",
-    "ref_create", "create_commit", "created_n", "cell", "new_slot",
+    "group", "pos", "row_ls", "row_pk", "gj_ls", "row_single", "row_n", "aorder", "agrp",
+    "committed", "seg_any", "promo", "adder", "ref_promo", "cand_ref", "best_s", "jseg",
+    "join_ok", "fits", "create_pool", "ref_create", "create_commit", "created_n",
+    "pool_created_n", "cell", "new_slot",
 )
 
 
@@ -1650,8 +1652,12 @@ def commit_writes_case(rng, m: int, f: int, layout: str) -> dict:
     r"""numpy arguments of one round's pool and tile writes
     (``WRITES_ARGS``), consistent as the round makes them.  Tables: a pool
     of 3M + 2 rows (the first M live, the last the guard, set to -7), tiles
-    of Fc = 256 cells (16 where M <= 256) on 2M / Fc + 2 groups, 2M + 2
-    cluster slots.  Rows: sums of 1-4 members.  Merge side as
+    of Fc = 256 cells (16 where M <= 256) on 2M / Fc + 2 groups, 4M + 4
+    cluster slots (their pool refs and counts, the guard slot's -7; the
+    candidates among the first half, the new clusters in the second).  Rows:
+    sums of 1-4 members, their packed centroids and flags made by the
+    buffer rows' producer (``engine/batch.py::_prep_buffer_rows``: a row of
+    count 1 whose sums are 0/1 is flagged ``row_single``).  Merge side as
     ``prefix_commit_case``'s keys for ``layout`` ("t=0.3 runs": segments
     of up to thousands of rows; "one segment"; "singletons"; "edges": the
     first with the edges below): 75% of the rows accepted (all in the
@@ -1665,13 +1671,25 @@ def commit_writes_case(rng, m: int, f: int, layout: str) -> dict:
     guard group.  "edges" adds: sums at the vote's edge (2 s == n) in 30% of
     the created rows' columns, counts of 0 and 1 with sums of 2-3 (the
     ``n <= 1`` rule), and writes past capacity (promotions, adders, pooled
-    creations, cells)."""
+    creations, cells, and the slots of three pooled and three committed
+    creations).  "mixed" is "t=0.3 runs" with more rows of count 1, half
+    of them holding a sum of 2 or -1 (unflagged: every other committed one
+    in sorted order, so a segment with two mixes both kinds) and a quarter
+    of the flagged own creations voted at a count of 2-3 (the kernel's
+    packed cell holds only at counts <= 1).  The
+    draws of the other layouts are those of the layouts before the flags
+    and "mixed" came, so their data is the same."""
+    from bblean_tpu_torch.engine.batch import _prep_buffer_rows
+
     f8 = (f + 7) // 8
     fc = 16 if m <= 256 else 256
     p_cap, c_cap, g_cap = 3 * m + 2, 2 * m + 2, 2 * m // fc + 2
     i32 = np.int32
     q = np.where(rng.random(f) < 0.25, 0.85, 0.04)
     row_n = rng.integers(1, 5, m)
+    layout, mixed = ("t=0.3 runs", True) if layout == "mixed" else (layout, False)
+    if mixed:
+        row_n = np.where(rng.random(m) < 0.4, 1, row_n)
     row_ls = rng.binomial(row_n[:, None], q, (m, f))
     # Merge side, in the sorted order of the round's candidate keys
     k = m if layout == "singletons" else max(1, m // 8)
@@ -1718,7 +1736,9 @@ def commit_writes_case(rng, m: int, f: int, layout: str) -> dict:
     create_pool = create_pool_try & (rng.random(m) < 0.95)
     created_n = np.where(join_ok & fits, gj_n[jseg], row_n)
     cell = rng.permutation((g_cap - 1) * fc)[:m]
-    new_slot = m + np.cumsum(create_commit) - 1
+    # The new clusters' slots lie past every drawn slot, as a round's lie
+    # past its live clusters (the tables take 2 (2M + 2) slots)
+    new_slot = c_cap + np.cumsum(create_commit | create_pool) - 1
     if layout == "edges":
         own = create_commit & ~(join_ok & fits)
         even = own & (row_n % 2 == 0)
@@ -1732,6 +1752,9 @@ def commit_writes_case(rng, m: int, f: int, layout: str) -> dict:
                                 (create_pool, ref_create, p_cap), (create_commit, cell, g_cap * fc)):
             at = np.flatnonzero(mask)[-3:]
             ref[at] = over + np.arange(len(at))
+        for mask in (create_pool, create_commit):
+            at = np.flatnonzero(mask)[:3]
+            new_slot[at] = 2 * c_cap + np.arange(len(at))
     ls = rng.integers(0, 50, (p_cap, f))
     ls[-1] = -7
     t_pk = rng.integers(0, 256, (g_cap, fc, f8), dtype=np.uint8)
@@ -1748,6 +1771,30 @@ def commit_writes_case(rng, m: int, f: int, layout: str) -> dict:
         ref_create=ref_create.astype(i32), create_commit=create_commit,
         created_n=created_n.astype(i32), cell=cell.astype(i32), new_slot=new_slot.astype(i32),
     )
+    if mixed:
+        ones = aorder[(row_n[aorder] == 1) & committed]
+        rest = np.setdiff1d(np.flatnonzero(row_n == 1), ones)
+        odd = np.concatenate([ones[::2], rng.permutation(rest)[: len(rest) // 2]])
+        at = rng.random((len(odd), f)) < 0.02
+        at[np.arange(len(odd)), rng.integers(0, f, len(odd))] = True
+        out["row_ls"][odd] = np.where(at, rng.choice([2, -1], at.shape), out["row_ls"][odd])
+        own = create_commit & ~(join_ok & fits) & (row_n == 1)
+        own[odd] = False
+        two = rng.permutation(np.flatnonzero(own))[: max(1, own.sum() // 4)]
+        out["created_n"][two] = rng.integers(2, 4, len(two))
+    rows = _prep_buffer_rows(torch.from_numpy(out["row_ls"]), torch.from_numpy(row_n.astype(i32)))
+    out["row_pk"], out["row_single"] = rows[3].numpy(), rows[5].numpy()
+    out["row_n"] = row_n.astype(i32)
+    out["seg_any"] = writer
+    out["pool_created_n"] = pool_n.astype(i32)
+    # The slots past the drawn ones, and every slot's pool ref and count,
+    # made without a draw (the guard slot's -7)
+    slot = np.arange(2 * c_cap)
+    out["group"] = np.concatenate([out["group"], (slot[c_cap:] % (g_cap - 1)).astype(i32)])
+    out["pos"] = np.concatenate([out["pos"], (slot[c_cap:] % fc).astype(i32)])
+    out["ls_ref"] = np.where(slot % 3 == 0, -1, (slot * 7919) % p_cap).astype(i32)
+    out["n"] = (1 + (slot * 31) % 50).astype(i32)
+    out["ls_ref"][-1] = out["n"][-1] = -7
     return out
 
 
@@ -1759,13 +1806,16 @@ def writes_args(case: dict, device) -> tuple:
 
 def _writes_reads(args: tuple) -> dict:
     r"""What one call must move, counted from its arguments: rows read
-    (committed rows, joint sums, own sums of pooled or created rows), pool
+    (committed rows, joint sums, own sums of pooled or created rows; of
+    these, the committed and own rows the kernel may read packed), pool
     rows written and read (the adders), promoted cells read, tile cells
-    written.  A write past a table's capacity moves nothing."""
-    big = WRITES_TABLES + ("group", "pos", "row_ls", "gj_ls")
+    written, pool refs set and counts added.  A write past a table's
+    capacity moves nothing."""
+    big = WRITES_TABLES + ("group", "pos", "row_ls", "row_pk", "gj_ls")
     a = {k: x.cpu().numpy() for k, x in zip(WRITES_ARGS, args) if k not in big}
     m = args[WRITES_ARGS.index("row_ls")].shape[0]
     p_cap = args[0].shape[0]
+    c_cap = args[WRITES_ARGS.index("n")].shape[0]
     n_cells = args[1].shape[0] * args[1].shape[1]
     seg_t = np.full(m, -1)
     writer = a["promo"] | a["adder"]
@@ -1773,40 +1823,62 @@ def _writes_reads(args: tuple) -> dict:
     ok_w = writer & (tgt >= 0) & (tgt < p_cap)
     seg_t[a["agrp"][ok_w]] = tgt[ok_w]
     adds = a["committed"] & (seg_t[a["agrp"]] >= 0)
+    seg_n = np.zeros(m, bool)
+    counted = a["seg_any"] & (a["best_s"] >= 0) & (a["best_s"] < c_cap)
+    seg_n[a["agrp"][counted]] = True
     pooled = a["create_pool"] & (a["ref_create"] >= 0) & (a["ref_create"] < p_cap)
     tiles = a["create_commit"] & (a["cell"] >= 0) & (a["cell"] < n_cells)
     joint_rows = set(a["jseg"][pooled & a["join_ok"]]) | set(a["jseg"][tiles & a["join_ok"] & a["fits"]])
-    own_rows = (pooled & ~a["join_ok"]) | (tiles & ~(a["join_ok"] & a["fits"]))
+    pooled_own = pooled & ~a["join_ok"]
+    tiles_own = tiles & ~(a["join_ok"] & a["fits"])
+    packed_own = tiles_own & a["row_single"] & (a["created_n"] <= 1) & ~pooled_own
+    slot_ok = (a["new_slot"] >= 0) & (a["new_slot"] < c_cap)
     return {
-        "committed": int(adds.sum()), "joint": len(joint_rows), "own": int(own_rows.sum()),
+        "committed": int(adds.sum()),
+        "committed_packed": int(a["row_single"][a["aorder"][adds]].sum()),
+        "joint": len(joint_rows), "own": int((pooled_own | tiles_own).sum()),
+        "own_packed": int(packed_own.sum()),
         "promo": int((ok_w & a["promo"]).sum()), "adder": int((ok_w & a["adder"]).sum()),
         "pooled": int(pooled.sum()), "tiles": int(tiles.sum()),
+        "refs": int((a["promo"] & counted).sum() + (a["create_pool"] & slot_ok).sum()),
+        "counts": int(counted.sum() + (a["create_commit"] & slot_ok).sum()),
+        "counted_rows": int((a["committed"] & seg_n[a["agrp"]]).sum()),
     }
 
 
 def _writes_bound(args: tuple) -> dict:
-    r"""The least time for one call of the writes: the committed rows'
-    sums, the joint sums and the own sums it copies or votes read once,
-    each written pool row written once (an adder's read too), each
-    promoted candidate's cell read, 256 B + 8 B a written tile cell, and
-    the (M,) inputs read once, over 3.35 TB/s.  The vote and the adds are
-    a few operations a column, far below the bytes."""
+    r"""The least time for one call of the writes: each committed row read
+    once (its F / 8 packed bytes where it is flagged ``row_single``, else
+    its 4F bytes of sums), the joint sums and the own sums it copies or
+    votes read once (a flagged own creation voted at a count <= 1 its
+    packed bytes), each written pool row written once (an adder's read
+    too), each promoted candidate's cell read, 256 B + 8 B a written tile
+    cell, 4 B a pool ref set and 8 B a count added, and the (M,) inputs
+    read once, over 3.35 TB/s.  The vote and the adds are a few
+    operations a column, far below the bytes.  ``bound_int32_ms`` is the
+    charge before the rows were read packed and before the refs and counts
+    were part of the call (every row read as 4F bytes): the bound the
+    earlier kernel's shares were taken against."""
     r = _writes_reads(args)
     m, f = args[WRITES_ARGS.index("row_ls")].shape
     f8 = (f + 7) // 8
     row = 4 * f
+    common = (r["promo"] + 2 * r["adder"] + r["pooled"]) * row + r["promo"] * f8 + r["tiles"] * (f8 + 8)
     n_bytes = (
-        (r["committed"] + r["joint"] + r["own"]) * row
-        + (r["promo"] + 2 * r["adder"] + r["pooled"]) * row
-        + r["promo"] * f8 + r["tiles"] * (f8 + 8)
-        + m * (8 + 10 * 4 + 7)
+        (r["committed"] - r["committed_packed"] + r["joint"] + r["own"] - r["own_packed"]) * row
+        + (r["committed_packed"] + r["own_packed"]) * f8
+        + common + r["refs"] * 4 + r["counts"] * 8
+        + m * (8 + 11 * 4 + 9)
     )
+    int32_bytes = (r["committed"] + r["joint"] + r["own"]) * row + common + m * (8 + 10 * 4 + 7)
     return {
         "work": (
-            f"M={m} ({r['committed']} committed rows into {r['promo']} promotions + "
-            f"{r['adder']} adders, {r['pooled']} pooled creations, {r['tiles']} tile cells)"
+            f"M={m} ({r['committed']} committed rows, {r['committed_packed']} of them packed, "
+            f"into {r['promo']} promotions + {r['adder']} adders, {r['pooled']} pooled "
+            f"creations, {r['tiles']} tile cells, {r['own_packed']} of them copied packed)"
         ),
         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_int32_ms": int32_bytes / HBM_BYTES_PER_S * 1e3,
     }
 
 
@@ -1828,6 +1900,20 @@ def _writes_library(args: tuple):
     return lambda ls: ls.index_add_(0, idx, src)
 
 
+def _writes_mixed_segment(case: dict, where: str) -> None:
+    r"""A "mixed" case has a merge segment whose committed rows include
+    flagged and unflagged rows of count 1 (read packed and as int32 sums
+    in one run of the adds), and flagged own cells voted at counts 2-3."""
+    rows = case["aorder"][case["committed"]]
+    segs = case["agrp"][case["committed"]]
+    one = case["row_n"][rows] == 1
+    flagged = case["row_single"][rows]
+    both = set(segs[one & flagged]) & set(segs[one & ~flagged])
+    own = case["create_commit"] & ~(case["join_ok"] & case["fits"]) & case["row_single"]
+    if not both or not (own & (case["created_n"] >= 2)).any():
+        raise AssertionError(f"{where}: no segment mixes flagged and unflagged rows of count 1")
+
+
 def _writes_equal(got: tuple, ref: tuple) -> list[str]:
     r"""The names of the tables that differ between two calls' tables."""
     return [n for n, a, b in zip(WRITES_TABLES, got, ref) if not torch.equal(a, b)]
@@ -1839,8 +1925,9 @@ def _writes_check(case_args: tuple, where: str) -> tuple:
     returns the kernel's tables."""
     from bblean_tpu_torch.ops import commit_writes as cw
 
-    got = tuple(t.clone() if i < 4 else t for i, t in enumerate(case_args))
-    ref = tuple(t.clone() if i < 4 else t for i, t in enumerate(case_args))
+    n_tab = len(WRITES_TABLES)
+    got = tuple(t.clone() if i < n_tab else t for i, t in enumerate(case_args))
+    ref = tuple(t.clone() if i < n_tab else t for i, t in enumerate(case_args))
     before = cw.launches
     cw.commit_writes(*got)
     cw.commit_writes_plain(*ref)
@@ -1850,8 +1937,10 @@ def _writes_check(case_args: tuple, where: str) -> tuple:
     bad = _writes_equal(got, ref)
     if bad:
         raise AssertionError(f"{where}: {', '.join(bad)} differ from the plain version's")
-    if not torch.equal(got[0][-1], case_args[0][-1]) or not torch.equal(got[1][-1, -1], case_args[1][-1, -1]):
-        raise AssertionError(f"{where}: the guard row or cell changed")
+    guards = [(got[0][-1], case_args[0][-1]), (got[1][-1, -1], case_args[1][-1, -1])]
+    guards += [(got[i][-1], case_args[i][-1]) for i in (4, 5)]
+    if not all(torch.equal(x, y) for x, y in guards):
+        raise AssertionError(f"{where}: the guard row, cell or slot changed")
     return got
 
 
@@ -1861,12 +1950,13 @@ def _writes_replays(args: tuple) -> None:
     replay's tables equal the plain version's."""
     from bblean_tpu_torch.ops import commit_writes as cw
 
-    start = tuple(t.clone() for t in args[:4])
-    ref = tuple(t.clone() for t in args[:4])
-    cw.commit_writes_plain(*ref, *args[4:])
+    n_tab = len(WRITES_TABLES)
+    start = tuple(t.clone() for t in args[:n_tab])
+    ref = tuple(t.clone() for t in args[:n_tab])
+    cw.commit_writes_plain(*ref, *args[n_tab:])
 
     def restore():
-        for t, s in zip(args[:4], start):
+        for t, s in zip(args[:n_tab], start):
             t.copy_(s)
 
     side = torch.cuda.Stream()
@@ -1881,7 +1971,7 @@ def _writes_replays(args: tuple) -> None:
         restore()
         graph.replay()
         torch.cuda.synchronize()
-        bad = _writes_equal(args[:4], ref)
+        bad = _writes_equal(args[:n_tab], ref)
         if bad:
             raise AssertionError(f"phase 2g graph replay {k}: {', '.join(bad)} differ from the plain version's")
 
@@ -1915,20 +2005,24 @@ def _time_writes(args: tuple) -> dict:
 def phase_writes() -> dict:
     r"""Phase 2g: the pool and tile writes' kernel (``ops/commit_writes.py``,
     ``csrc/commit_writes.cu``) bit-equal to its plain version (every
-    table, the guard row and cell unchanged) in every layout of
+    table, the guard row, cell and slot unchanged) in every layout of
     ``WRITES_LAYOUTS`` at 8,192 and 2,048 rows of 2048 bits (segments of
     thousands of rows, split over many blocks; the vote's edge and its
-    ``n <= 1`` rule; writes past capacity), and at 264 bits (a byte tail,
-    scalar loads); then ``REPLAYS`` replays of a captured call.  Timed on
-    the t = 0.3-like layout at both widths over copies of the inputs in
-    turn, beside ``index_add_`` of the adders' rows (the library
-    yardstick).  The kernels line's record is timed on a round of the fit
-    (phase 4)."""
+    ``n <= 1`` rule; writes past capacity; flagged and unflagged rows in
+    one segment), and at 264 bits (a byte tail, scalar loads); then
+    ``REPLAYS`` replays of a captured call.  Timed on the t = 0.3-like
+    layout at both widths over copies of the inputs in turn, beside
+    ``index_add_`` of the adders' rows (the library yardstick), with both
+    bounds (``_writes_bound``).  The kernels line's record is timed on a
+    round of the fit (phase 4).  The layouts drawn before "mixed" came
+    keep their order, so their data is the same."""
     rng = np.random.default_rng(37)
     timing = {}
     replay = None
-    cases = [(m, N_FEATURES, layout) for m in (8192, 2048) for layout in WRITES_LAYOUTS]
+    before = [layout for layout in WRITES_LAYOUTS if layout != "mixed"]
+    cases = [(m, N_FEATURES, layout) for m in (8192, 2048) for layout in before]
     cases += [(2048, 264, "edges"), (300, 2048, "t=0.3 runs")]
+    cases += [(8192, N_FEATURES, "mixed"), (2048, N_FEATURES, "mixed"), (2048, 264, "mixed")]
     for m, f, layout in cases:
         case = commit_writes_case(rng, m, f, layout)
         args = writes_args(case, "cuda")
@@ -1938,12 +2032,18 @@ def phase_writes() -> dict:
         line = (
             f"phase 2g pool and tile writes == plain: M={m} F={f} {layout} ({len(sizes)} merge "
             f"segments, longest {sizes.max() if len(sizes) else 0} committed rows; {r['promo']} "
-            f"promotions, {r['adder']} adders, {r['pooled']} pooled creations, {r['tiles']} tile cells)"
+            f"promotions, {r['adder']} adders, {r['pooled']} pooled creations, {r['tiles']} tile cells; "
+            f"{r['committed_packed']} of {r['committed']} committed rows and {r['own_packed']} own "
+            f"cells read packed)"
         )
+        if layout == "mixed":
+            _writes_mixed_segment(case, f"phase 2g M={m} F={f} mixed")
         if layout == "t=0.3 runs" and f == N_FEATURES and m in (8192, 2048):
             t = timing[f"M={m}"] = _time_writes(args)
             line += _timing_text(t) + (
-                f"; index_add_ of the adders' rows {t['library_ms']:.4f} ms; over {t['copies']} copies"
+                f" (every row charged as int32 sums {t['bound_int32_ms']:.4g} ms, share "
+                f"{t['bound_int32_ms'] / t['ms']:.3f}); index_add_ of the adders' rows "
+                f"{t['library_ms']:.4f} ms; over {t['copies']} copies"
             )
             if m == 8192:
                 replay = args
@@ -2406,8 +2506,10 @@ class _PrefixWork:
 
     def _sample_writes(self, *args):
         if self.sampling:
-            tables = tuple(("zeros", tuple(t.shape), t.dtype) for t in args[:4])
-            self.samples.setdefault(("writes", args[6].shape[0]), tables + _to_host(args[4:]))
+            n_tab = len(WRITES_TABLES)
+            tables = tuple(("zeros", tuple(t.shape), t.dtype) for t in args[:n_tab])
+            m = args[WRITES_ARGS.index("row_ls")].shape[0]
+            self.samples.setdefault(("writes", m), tables + _to_host(args[n_tab:]))
         return self.cw_launch(*args)
 
     def rows(self) -> np.ndarray:
@@ -2791,8 +2893,9 @@ def phase_prefix_fit(samples: dict) -> dict:
         t = writes[f"M={m}"] = _time_writes(args)
         say(
             f"phase 4 pool and tile writes == plain on a round of the t=0.3 fit, M={m} (tables "
-            f"zeroed)" + _timing_text(t) + f"; index_add_ of the adders' rows "
-            f"{t['library_ms']:.4f} ms; over {t['copies']} copies"
+            f"zeroed)" + _timing_text(t) + f" (every row charged as int32 sums "
+            f"{t['bound_int32_ms']:.4g} ms, share {t['bound_int32_ms'] / t['ms']:.3f}); index_add_ "
+            f"of the adders' rows {t['library_ms']:.4f} ms; over {t['copies']} copies"
         )
         del args
         torch.cuda.empty_cache()

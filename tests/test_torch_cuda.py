@@ -998,12 +998,13 @@ def test_leader_election_wrapper_rejects_bad_inputs(cuda) -> None:
             le.elect_leaders(*args[:7], plan)
 
 
-@pytest.mark.parametrize("layout", ["t=0.3 runs", "one segment", "singletons", "edges"])
+@pytest.mark.parametrize("layout", ["t=0.3 runs", "one segment", "singletons", "edges", "mixed"])
 @pytest.mark.parametrize("m,f", [(8192, 2048), (2048, 2048), (2048, 264), (300, 100)])
 def test_commit_writes_kernel_matches_plain(cuda, m, f, layout) -> None:
     r"""Every writes layout at the rounds' widths and at 264 and 100 bits
-    (scalar loads, byte tails): every table bit-equal to the plain
-    version's, the guard row and cell unchanged, one launch."""
+    (scalar loads, byte tails; rows read packed and as int32 sums): every
+    table bit-equal to the plain version's, the guard row, cell and slot
+    unchanged, one launch."""
     import chip_smoke
 
     case = chip_smoke.commit_writes_case(np.random.default_rng(47), m, f, layout)
@@ -1023,13 +1024,17 @@ def test_commit_writes_wrapper_rejects_bad_inputs(cuda) -> None:
 
     case = chip_smoke.commit_writes_case(np.random.default_rng(49), 64, 64, "t=0.3 runs")
     args = chip_smoke.writes_args(case, cuda)
+    at = {name: i for i, name in enumerate(chip_smoke.WRITES_ARGS)}
     bad = {
         0: args[0].to(torch.int64),  # the pool's dtype
         1: args[1][..., :-1],  # the tiles' bytes
-        6: args[6].t().contiguous().t(),  # not contiguous
-        8: args[8].to(torch.int32),  # the order's dtype
-        12: args[12].cpu(),  # another device
-        16: args[16][:-1],  # a row input's length
+        at["n"]: args[at["n"]][:-1],  # the counts' length
+        at["row_ls"]: args[at["row_ls"]].t().contiguous().t(),  # not contiguous
+        at["row_pk"]: args[at["row_pk"]][:, :-1],  # the packed rows' bytes
+        at["row_single"]: args[at["row_single"]].to(torch.uint8),  # the flag's dtype
+        at["aorder"]: args[at["aorder"]].to(torch.int32),  # the order's dtype
+        at["committed"]: args[at["committed"]].cpu(),  # another device
+        at["jseg"]: args[at["jseg"]][:-1],  # a row input's length
     }
     for i, t in bad.items():
         with pytest.raises(ValueError):
