@@ -69,7 +69,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bblean_tpu_torch.engine import graphs
+from bblean_tpu_torch.engine import graphs, spans
 from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
 from bblean_tpu_torch.ops.merges import merge_accept_batch, merge_accept_from_moments
 from bblean_tpu_torch.ops.prefix_commit import prefix_commit_moments
@@ -122,7 +122,8 @@ graphs.count_launches(_commit_writes, "launches")
 def _host(t: torch.Tensor) -> np.ndarray:
     global host_syncs
     host_syncs += 1
-    return t.cpu().numpy()
+    with spans.span("sync"):
+        return t.cpu().numpy()
 
 
 def _host_int(t: torch.Tensor) -> int:
@@ -386,22 +387,23 @@ def _scatter_perm(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 class _Stages:
-    r"""``torch.profiler`` ranges around the stages of an insert round
-    (``insert_round/<stage>``), one open at a time: ``stage(name)`` closes
-    the open range and opens the next, ``stage.end()`` closes it.  A
-    trace shows each stage's host time and the torch kernels it launched;
-    ``chip_ab.py --rounds`` puts marker kernels at the same boundaries to
-    split a dispatched round's device time by stage.  With no profiler
-    running a range costs a microsecond of host time, and a replayed round
-    runs none."""
+    r"""The stage boundaries of an insert round, one stage open at a time:
+    ``stage(name)`` ends the open stage and starts the next, ``stage.end()``
+    ends it.  While spans are recorded (``engine/spans.py``) each stage of
+    a dispatched round is a ``round.<name>`` span; a captured round records
+    none (its Python runs once, to capture) and a replayed one runs no
+    Python.  ``chip_ab.py --rounds`` replaces the class with one that
+    launches a marker kernel at each boundary, to split a dispatched
+    round's device time by stage."""
 
     def __init__(self) -> None:
         self._open = None
 
     def __call__(self, name: str) -> None:
         self.end()
-        self._open = torch.profiler.record_function(f"insert_round/{name}")
-        self._open.__enter__()
+        if spans.on and graphs.capturing is None:
+            self._open = spans.span(f"round.{name}")
+            self._open.__enter__()
 
     def end(self) -> None:
         if self._open is not None:
@@ -409,7 +411,7 @@ class _Stages:
             self._open = None
 
 
-# The stages of an insert round, in order, as its profiler ranges name them
+# The stages of an insert round, in order
 ROUND_STAGES = (
     "search", "screen", "commits", "election", "cohesion", "create guard",
     "positions", "tables", "tile writes", "pool writes",
@@ -698,6 +700,7 @@ def _insert_round(
     return state._replace(num_ls=num_ls, num=num, g_num=g_num), pending, assigned, strikes
 
 
+@spans.spanned("step")
 def _batch_step_impl(
     state: BatchState,
     row_ls: torch.Tensor,  # (M, F) int32
@@ -748,12 +751,14 @@ def _batch_step_impl(
             _carry(bufs, graphs.run(("narrow", criterion, narrow), compact, tables, bufs))
             rounds += 1
 
-    state = state._replace(**{c: bufs[c].clone() for c in _COUNTERS})
-    assigned = bufs["assigned"].clone()
-    state = _refresh_touched(state, assigned, row_ls, row_n)
+    with spans.span("refresh"):
+        state = state._replace(**{c: bufs[c].clone() for c in _COUNTERS})
+        assigned = bufs["assigned"].clone()
+        state = _refresh_touched(state, assigned, row_ls, row_n)
     return state, assigned, _isum(bufs["pending"]) * 1000 + rounds
 
 
+@spans.spanned("step.prep")
 def _stage_step(
     state: BatchState,
     row_ls: torch.Tensor,
@@ -916,6 +921,7 @@ def _refresh_touched(
     return state
 
 
+@spans.spanned("split")
 def _split_topk_impl(
     state: BatchState, *, k: int, fanout: int
 ) -> tuple[BatchState, torch.Tensor]:
@@ -1076,6 +1082,7 @@ def _split_groups_device_impl(
     return state._replace(g_num=state.g_num + _isum(active))
 
 
+@spans.spanned("step.prep")
 def _slice_prep_fp_rows_impl(
     dev_fps: torch.Tensor, start: int, n_valid: int, m: int, n_features: int
 ):
@@ -1156,9 +1163,10 @@ def _scan_fit_packed_impl(
         # Per-batch split pass whenever a group nears its tile capacity, and
         # at the window's end whenever one exceeds fanout (rebalancing keeps
         # hot groups' candidate tiles whole)
-        g_cap = state.g_count.shape[0]
-        live = torch.arange(g_cap, device=dev) < state.g_num
-        top = _host_int(torch.where(live, state.g_count, 0).amax())
+        with spans.span("split"):
+            g_cap = state.g_count.shape[0]
+            live = torch.arange(g_cap, device=dev) < state.g_num
+            top = _host_int(torch.where(live, state.g_count, 0).amax())
         if top > tile_cap - 16 or (i == k - 1 and top > fanout):
             state = _split_topk_impl(state, k=split_k, fanout=fanout)[0]
     return state, assigned, encs
@@ -1426,12 +1434,14 @@ class BatchTree:
         if (new_c, new_g, new_p) != (
             self.capacity, self.g_capacity, self.ls_capacity
         ):
-            self.state = _grow_state(self.state, new_c, new_g, new_p)
+            with spans.span("grow"):
+                self.state = _grow_state(self.state, new_c, new_g, new_p)
             self.capacity, self.g_capacity = new_c, new_g
             self.ls_capacity = new_p
 
     # -- insertion -----------------------------------------------------------
 
+    @spans.spanned("fit")
     def fit_packed(
         self,
         packed_fps: np.ndarray | torch.Tensor,
@@ -1480,10 +1490,11 @@ class BatchTree:
 
         def upload_chunk(cstart: int) -> torch.Tensor:
             stop = min(cstart + chunk_rows, num)
-            chunk = packed_fps[cstart:stop]
-            if stop - cstart < chunk_rows:
-                chunk = np.pad(chunk, ((0, chunk_rows - (stop - cstart)), (0, 0)))
-            return torch.from_numpy(np.ascontiguousarray(chunk, np.uint8)).to(self.device)
+            with spans.span("stage_chunk"):
+                chunk = packed_fps[cstart:stop]
+                if stop - cstart < chunk_rows:
+                    chunk = np.pad(chunk, ((0, chunk_rows - (stop - cstart)), (0, 0)))
+                return torch.from_numpy(np.ascontiguousarray(chunk, np.uint8)).to(self.device)
 
         cur_chunk = None
         for start in range(0, num, window):
@@ -1534,6 +1545,7 @@ class BatchTree:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @spans.spanned("window")
     def _submit_scan(
         self,
         dev_fps: torch.Tensor,
@@ -1663,6 +1675,7 @@ class BatchTree:
             self._process_oldest_boundary()
         self._split_oversized_groups()
 
+    @spans.spanned("boundary")
     def _process_oldest_boundary(self) -> None:
         r"""Pop and settle the OLDEST queued boundary.  A scan window's
         refreshes the host's counter bounds from its sync payload and
@@ -1697,6 +1710,7 @@ class BatchTree:
             self._retry_scan(q, pending)
             self._split_oversized_groups()
 
+    @spans.spanned("retry")
     def _retry_batch(self, q: dict) -> None:
         r"""Drain a batch whose step exhausted max_rounds (rare): split, mask
         the already-assigned rows, re-step until done."""
@@ -1727,6 +1741,7 @@ class BatchTree:
             raise RuntimeError("batch engine failed to drain a batch")
         self._row_slots[q["slot_idx"]] = (final, count)
 
+    @spans.spanned("retry")
     def _retry_scan(self, q: dict, pending_per_batch: np.ndarray) -> None:
         r"""Drain a scan window some of whose batches exhausted max_rounds
         (rare): split, rebuild each pending batch's rows from the staged

@@ -28,6 +28,10 @@ capture of a device shares one graph memory pool: replays never overlap,
 and the callers read outputs before the next replay.  A program is dropped,
 with its graph, as soon as one of its tables is freed.
 
+While spans are recorded (``engine/spans.py``), each run is a
+``program.warmup``, ``program.capture`` or ``program.replay`` span named
+after the program (a capture's replay is a span of its own).
+
 A failed capture or replay raises; there is no fallback to dispatch.  On
 the CPU the same runner calls ``fn`` at every use, through the same
 buffers, so the CPU tests hold the buffer handling.
@@ -45,6 +49,8 @@ import typing as tp
 import weakref
 
 import torch
+
+from bblean_tpu_torch.engine import spans
 
 __all__ = [
     "Buffers", "Program", "buffers", "run", "count_launches", "observers",
@@ -231,14 +237,18 @@ def run(name: tp.Hashable, fn: Fn, tables: tuple, bufs: Buffers) -> tuple:
     any program."""
     global warmups
     key = (name, tuple(map(_ident, tables)), tuple(map(_ident, bufs.values())))
+    program = name[0] if isinstance(name, tuple) else name
     prog = _programs.get(key)
     if prog is None:
-        _programs[key] = Program(key, fn, tables, bufs)
-        warmups += 1
-        device = tables[0].device
-        if device.type == "cuda":
-            return _on_side_stream(device, lambda: fn(tables, bufs))
-        return fn(tables, bufs)
+        with spans.span("program.warmup", program):
+            _programs[key] = Program(key, fn, tables, bufs)
+            warmups += 1
+            device = tables[0].device
+            if device.type == "cuda":
+                return _on_side_stream(device, lambda: fn(tables, bufs))
+            return fn(tables, bufs)
     if not prog.captured:
-        _capture(prog, tables)
-    return _replay(prog, tables)
+        with spans.span("program.capture", program):
+            _capture(prog, tables)
+    with spans.span("program.replay", program):
+        return _replay(prog, tables)

@@ -75,6 +75,7 @@ PORT_ONLY = {
     "benchmarks.route_cost": "twin of benchmarks/route_cost.py",
     "benchmarks.scale_10m": "twin of benchmarks/scale_10m.py",
     "engine.graphs": "the batch step's rounds and split passes as CUDA graphs (JAX compiles its step as one XLA program)",
+    "engine.spans": "spans of the host driver's fit path, stamped on the profiler's clock (the JAX package records none)",
     "engine.state_io": "BatchState to and from numpy (JAX arrays convert themselves)",
     "examples": "twins of the repository root's examples/",
     "examples.best_practices": "twin of examples/best_practices.py",
