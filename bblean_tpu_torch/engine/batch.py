@@ -83,6 +83,7 @@ from bblean_tpu_torch.ops import (
     commit_writes as _commit_writes,
     leader_election,
     prefix_commit,
+    refresh,
     route,
     tile_search,
 )
@@ -754,7 +755,9 @@ def _batch_step_impl(
     with spans.span("refresh"):
         state = state._replace(**{c: bufs[c].clone() for c in _COUNTERS})
         assigned = bufs["assigned"].clone()
-        state = _refresh_touched(state, assigned, row_ls, row_n)
+        state = _refresh_touched(
+            state, assigned, row_ls, row_n, row_pk, row_single, bufs["order"]
+        )
     return state, assigned, _isum(bufs["pending"]) * 1000 + rounds
 
 
@@ -867,57 +870,21 @@ def _refresh_touched(
     assigned: torch.Tensor,
     row_ls: torch.Tensor,
     row_n: torch.Tensor,
+    row_pk: torch.Tensor,
+    row_single: torch.Tensor,
+    order: torch.Tensor,
 ) -> BatchState:
     r"""Fold committed rows into their group CFs and refresh the tile and
     routing centroids of the clusters and groups this step touched (once
-    per step).  Updates the tables in place."""
-    guard_c = state.n.shape[0] - 1
-    n_features = state.g_ls.shape[1]
-
-    ok = assigned >= 0
-    slots = torch.where(ok, assigned, guard_c).long()  # guard ok for gathers
-    groups = state.group[slots]
-
-    # Group CF accumulation, pre-aggregated per group (one writer each)
-    m = assigned.shape[0]
-    gkey = torch.where(ok, groups, _BIG)
-    gorder, ggrp, gstart = _group_ids_by_key(gkey)
-    ggrp_l = ggrp.long()
-    ok_sorted = ok[gorder]
-    grp_sum_ls = _segment_sum(
-        torch.where(ok_sorted[:, None], row_ls[gorder], 0), ggrp, m
-    )[ggrp_l]
-    grp_sum_n = _segment_sum(
-        torch.where(ok_sorted, row_n[gorder], 0), ggrp, m
-    )[ggrp_l]
-    writer = gstart & ok_sorted
-    g_idx = groups[gorder]
-    _drop_add_(state.g_ls, g_idx, grp_sum_ls, writer)
-    _drop_add_(state.g_n, g_idx, grp_sum_n, writer)
-    del grp_sum_ls
-
-    # Tile entries: one writer per distinct touched cluster
-    skey = torch.where(ok, slots.to(_I32), _BIG)
-    sorder, _sgrp, sstart = _group_ids_by_key(skey)
-    writer_c = sstart & ok[sorder]
-    slots_s = slots[sorder]
-    t_ls = _cluster_ls_of(state, slots_s, n_features)
-    t_n = state.n[slots_s]
-    cents = majority_centroid_from_sums(t_ls, t_n.clamp_min(1))
-    del t_ls
-    cell = state.group[slots_s] * state.t_pk.shape[1] + state.pos[slots_s]
-    _drop_set_(_flat2(state.t_pk), cell, pack_fingerprints_device(cents), writer_c)
-    _drop_set_(_flat2(state.t_pops), cell, _isum(cents, -1), writer_c)
-    del cents
-
-    # Routing centroids: one writer per distinct touched group (g_ls is
-    # already updated above)
-    groups_s = torch.where(ok_sorted, g_idx, 0).long()
-    g_cents = majority_centroid_from_sums(
-        state.g_ls[groups_s], state.g_n[groups_s].clamp_min(1)
+    per step): ``ops/refresh.py::refresh_touched``, two launches of one
+    kernel on the card, which reads flagged rows (``row_single``) as their
+    packed bytes ``row_pk`` and adds the rows in ``order`` (the step's sort
+    plan).  Updates the tables in place."""
+    refresh.refresh_touched(
+        state.g_ls, state.g_n, state.t_pk, state.t_pops, state.g_cent, state.g_pops,
+        state.ls, state.ls_ref, state.n, state.group, state.pos,
+        assigned, row_ls, row_n, row_pk, row_single, order,
     )
-    _drop_set_(state.g_cent, g_idx, g_cents.to(_CENT_DT), writer)
-    _drop_set_(state.g_pops, g_idx, _isum(g_cents, -1), writer)
     return state
 
 
@@ -1527,6 +1494,7 @@ class BatchTree:
         dev_fps = torch.as_tensor(dev_fps).to(self.device, torch.uint8)
         if self.device.type == "cuda":
             tile_search._lib()
+            refresh._lib()
         thr, tol = self._scalars()
         rows = _slice_prep_fp_rows_impl(dev_fps, 0, 0, m, self.n_features)
         self.state, _assigned, _enc = _batch_step_impl(

@@ -31,7 +31,10 @@ inputs after each replay.  ``--out`` writes the per-launch and per-window
 numbers to a JSON file.  The leader election's and the pool and tile
 writes' kernels (``csrc/leader_election.cu``, ``csrc/commit_writes.cu``,
 one call a round; three and two launches a call) get their calls and
-device ms per fit, each launch's too.  Imports no JAX.
+device ms per fit, each launch's too, and so does the step's refresh
+(``csrc/refresh.cu``, one call a step, two launches), with the sum of its
+calls' bounds (``chip_smoke._refresh_bound``, noted in the logged fit)
+and its share.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -124,7 +127,7 @@ def main() -> None:
         graphs.observers.remove(replayed)
     if n_prof != n_plain:
         raise AssertionError(f"the profiled fit gave {n_prof} clusters, not {n_plain}")
-    with cs._PrefixWork() as logged:
+    with cs._PrefixWork() as logged, cs._RefreshWork(bounds=True) as refresh_log:
         n_logged = _fit(dev_fps, thr)
     if n_logged != n_plain or [n[:4] for n in logged.seen] != [n[:4] for n in prefix.seen]:
         raise AssertionError("the logged fit's prefix-commit launches differ from the profiled fit's")
@@ -179,6 +182,7 @@ def main() -> None:
     summary["prefix-commit"] = _prefix_summary(events, logged)
     summary["leader-election"] = _round_kernel_summary(events, "leader election", cs.ELECTION_KERNELS)
     summary["commit-writes"] = _round_kernel_summary(events, "pool and tile writes", cs.WRITES_KERNELS)
+    summary["refresh"] = _refresh_summary(events, refresh_log)
     cs.say(
         f"profile: profiled fit {prof_wall:.3f} s wall, device busy {busy_ms:.3f} ms "
         f"({busy_ms / 1e3 / prof_wall:.3f} of the wall); tile-search kernels "
@@ -268,6 +272,23 @@ def _round_kernel_summary(events, label: str, names: tuple[str, ...]) -> dict:
     cs.say(
         f"profile {label}: {calls} calls ({len(names)} launches each), {ms:.3f} device ms per fit "
         f"({out['mean_ms']:.4f} ms a call; " + ", ".join(f"{n} {v:.3f} ms" for n, v in per.items()) + ")"
+    )
+    return out
+
+
+def _refresh_summary(events, log) -> dict:
+    r"""The step's refresh in the profiled fit (one call a step, two
+    launches): its calls, device ms per fit, and the sum of the calls'
+    bounds (``log``: the logged fit's calls, ``chip_smoke._refresh_bound``)
+    with the share it makes of the device time."""
+    out = _round_kernel_summary(events, "refresh", cs.REFRESH_KERNELS)
+    if out["calls"] != log.calls:
+        raise AssertionError(f"{out['calls']} refresh calls in the trace, {log.calls} in the logged fit")
+    out["bound_ms"] = sum(log.bound_ms)
+    out["share"] = out["bound_ms"] / out["device_ms"] if out["device_ms"] else 0.0
+    cs.say(
+        f"profile refresh: bound summed over the fit's calls {out['bound_ms']:.3f} ms, "
+        f"share {out['share']:.3f} of its {out['device_ms']:.3f} device ms"
     )
     return out
 

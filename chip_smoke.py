@@ -63,8 +63,20 @@ as the phase ends:
    the guard row, rows read packed and as int32 sums in one segment) and
    on ``REPLAYS`` replays of a captured call
    (:func:`phase_writes`); 2e-2g timed as 2d is, over copies of their
-   inputs taken in turn (4x the L2).
-   ``python3 chip_smoke.py --only kernels`` runs phases 1 and 2-2g alone;
+   inputs taken in turn (4x the L2);
+2h. the step's refresh kernel (``ops/refresh.py`` over
+   ``csrc/refresh.cu``) bit-equal to its plain version, every table, in
+   every layout of ``REFRESH_LAYOUTS`` (one hot group, groups of one row,
+   pool clusters and singletons, overflow groups, no committed row, the
+   guard slot, the vote's edges) at 8,192 rows of 2048 bits with tiles of
+   256 and 512 cells and at 264 and 100 bits, each call twice (the
+   kernel's scratch is left cleared), timed as 2g is
+   (:func:`phase_refresh`); after phase 4, the 1M fits at t = 0.3 and
+   t = 0.65 again with sampled refresh calls held to the plain version,
+   the counts exact, and a mid-fit step's call timed
+   (:func:`phase_refresh_fit`).
+   ``python3 chip_smoke.py --only kernels`` runs phases 1 and 2-2h alone;
+   ``python3 chip_smoke.py --only refresh`` runs phases 1 and 2h alone;
 3. the port on the CPU (plain search) and on the card (kernels) give the
    same labels for 20,000 fingerprints after the fit, a shuffled
    recluster and a refine, and the same predicted slots and sims for
@@ -183,11 +195,11 @@ no plain version may see CUDA tensors.  Phase 4's
 fits and phase 8 b's fits and merges hold sampled launches of the route
 and twin bit-equal to the plain versions on their own inputs and print
 their average shapes.  The line before the last is a JSON object with each
-of the eight kernels' launches, error, times, bound, share and library
+of the nine kernels' launches, error, times, bound, share and library
 yardstick at the shape the fits give it (the "fit" cases of phases 2, 2b,
 2c and 2d; the merge case of 2d for the twin; a wide round of phase 4's
-t = 0.3 fit for the prefix commits, the leader election and the writes);
-the last line is
+t = 0.3 fit for the prefix commits, the leader election and the writes;
+a mid-fit step of the t = 0.3 fit for the step's refresh); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero without a result.
 """
@@ -2053,9 +2065,398 @@ def phase_writes() -> dict:
     return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
 
 
+# The arguments of ``refresh_touched`` in order: the tables it updates in
+# place, then what it reads
+REFRESH_TABLES = ("g_ls", "g_n", "t_pk", "t_pops", "g_cent", "g_pops")
+REFRESH_ARGS = REFRESH_TABLES + (
+    "ls", "ls_ref", "n", "group", "pos", "assigned", "row_ls", "row_n", "row_pk",
+    "row_single", "order",
+)
+# Phase 2h: the layouts of one step's committed rows (``refresh_case``)
+REFRESH_LAYOUTS = (
+    "t=0.3 runs", "one hot group", "singleton groups", "overflow", "none", "guard", "edges",
+)
+# The refresh's kernels as the profiler names them (two launches a call)
+REFRESH_KERNELS = ("refresh_fold_kernel", "refresh_vote_kernel")
+
+
+def refresh_case(rng, m: int, f: int, fc: int, layout: str) -> dict:
+    r"""numpy arguments of one step's refresh (``REFRESH_ARGS``), as a step
+    leaves them.  Clusters are laid group by group (``per`` a live group, at
+    distinct cells of tiles of ``fc`` cells, their slots shuffled), 60% of
+    them with a pool row of sums of their 2-50 members, the rest singletons
+    of count 1 whose cell holds their bits; other cells hold stale bytes.
+    The last group and the last slot are the guards: the guard group's
+    tables hold -7 (0xF9 in its tile), the guard slot the engine's zeros.
+    Rows: counts of 1 (85%) or 2-4 and their sums, flagged by the buffer
+    rows' producer (``engine/batch.py::_prep_buffer_rows``), the last M / 16
+    padding (count 0); 80% of the others commit, to a group drawn with
+    weights 1 / (i + 1)^1.1 and a cluster of it.  ``order`` is the step's
+    sort plan: a stable sort by routed group (padding last), the committed
+    group but for "overflow".  Layouts: "t=0.3 runs" (M / 5 live groups of
+    8 clusters); "one hot group" (16 groups of 64 clusters, 90% of the
+    rows on the first); "singleton groups" (M groups of one cluster, every
+    valid row committed to its own group); "overflow" (30% of the committed
+    rows sent to clusters of M / 20 more groups while routed to their
+    drawn one, as creations into full tiles are); "none" (no row commits);
+    "guard" (half the rows commit; the guard slot points at a live cell
+    with a pool ref, so that the rows that do not commit gather real
+    data); "edges" (pool sums at the vote's edge, 2 s == n, in 30% of
+    their columns, pool clusters of counts 0 and 1 with sums of 2-3 and
+    singletons of counts 2-3 (the ``n <= 1`` rule and its other side),
+    groups of counts 0, 1 and 2^25 + 1 with sums about half of it (f32
+    rounding), rows of count 1 holding a sum of 2 or -1 (unflagged))."""
+    from bblean_tpu_torch.engine.batch import _prep_buffer_rows
+
+    f8 = (f + 7) // 8
+    i32 = np.int32
+    g_live, per = {"one hot group": (16, 64), "singleton groups": (m, 1)}.get(
+        layout, (max(2, m // 5), 8)
+    )
+    per = min(per, fc)
+    n_over = max(1, m // 20) if layout == "overflow" else 0
+    g_used = g_live + n_over
+    g_cap = g_used + 2  # an empty group, then the guard
+    k = g_used * per
+    c_cap = k + 2  # a free slot, then the guard
+    q = np.where(rng.random(f) < 0.25, 0.85, 0.04)
+    # Clusters: slot -> (group, pos), group-major under a shuffle
+    slot_of = rng.permutation(k)
+    group = np.zeros(c_cap, np.int64)
+    pos = np.zeros(c_cap, np.int64)
+    group[slot_of] = np.repeat(np.arange(g_used), per)
+    pos[slot_of] = np.concatenate([rng.permutation(fc)[:per] for _ in range(g_used)])
+    pooled = np.zeros(c_cap, bool)
+    pooled[:k] = rng.random(k) < 0.6
+    p_cap = int(pooled.sum()) + 2
+    ls_ref = np.full(c_cap, -1, np.int64)
+    ls_ref[pooled] = rng.permutation(p_cap - 1)[: pooled.sum()]
+    n = np.where(pooled, rng.integers(2, 51, c_cap), 1)
+    n[k:] = 0
+    ls_rows = np.zeros((p_cap, f), np.int64)
+    ls_rows[ls_ref[pooled]] = rng.binomial(n[pooled][:, None], q, (int(pooled.sum()), f))
+    ls_rows[-1] = -7
+    t_pk = rng.integers(0, 256, (g_cap, fc, f8), dtype=np.uint8)
+    t_pops = rng.integers(0, f, (g_cap, fc)).astype(i32)
+    g_n = rng.integers(1, 1000, g_cap)
+    g_ls = rng.binomial(np.broadcast_to(g_n[:, None], (g_cap, f)), q)
+    g_cent = rng.integers(0, 2, (g_cap, f)).astype(np.int8)
+    g_pops = rng.integers(0, f, g_cap).astype(i32)
+    if layout == "edges":
+        edge = pooled & (n % 2 == 0)
+        cols = rng.random((c_cap, f)) < 0.3
+        ls_rows[ls_ref[edge]] = np.where(cols[edge], n[edge, None] // 2, ls_rows[ls_ref[edge]])
+        few = np.flatnonzero(pooled)[:6]
+        n[few] = [0, 1, 0, 1, 1, 0]
+        ls_rows[ls_ref[few], :8] = np.array([3, 0, 1, 2, 0, 2, 1, 3])
+        singles = np.flatnonzero(~pooled[:k])[:4]
+        n[singles] = [2, 3, 2, 3]
+        g_n[:4] = [0, 1, (1 << 25) + 1, (1 << 25) + 1]
+        g_ls[:2, :8] = np.array([3, 0, 1, 2, -1, 2, 1, 0])
+        g_ls[2:4] = (1 << 24) + rng.integers(-2, 3, (2, f))
+    # The guard group and slot
+    g_ls[-1], g_n[-1], g_cent[-1], g_pops[-1] = -7, -7, -7, -7
+    t_pk[-1], t_pops[-1] = 0xF9, -7
+    group[-1], pos[-1], ls_ref[-1], n[-1] = 0, 0, -1, 0
+    if layout == "guard":
+        live = np.flatnonzero(pooled[:k])[0]
+        group[-1], pos[-1], ls_ref[-1], n[-1] = group[live], pos[live], ls_ref[live], 5
+    # Singletons' cells hold their bits
+    single = np.flatnonzero(~pooled[:k])
+    bits = (rng.random((len(single), f)) < q).astype(np.uint8)
+    t_pk[group[single], pos[single]] = np.packbits(bits, axis=1)[:, :f8]
+    # Rows
+    row_n = np.where(rng.random(m) < 0.85, 1, rng.integers(2, 5, m))
+    row_n[m - m // 16:] = 0
+    row_ls = rng.binomial(np.maximum(row_n, 1)[:, None], q, (m, f)) * (row_n > 0)[:, None]
+    if layout == "edges":
+        odd = np.flatnonzero(row_n == 1)[::5]
+        at = rng.random((len(odd), f)) < 0.02
+        row_ls[odd] = np.where(at, rng.choice([2, -1], at.shape), row_ls[odd])
+    valid = row_n > 0
+    share = {"none": 0.0, "guard": 0.5, "singleton groups": 1.0}.get(layout, 0.8)
+    commit = valid & (rng.random(m) < share)
+    w = 1.0 / np.arange(1, g_live + 1) ** 1.1
+    if layout == "one hot group":
+        w = np.r_[9.0 * w[1:].sum(), w[1:]]
+    routed = rng.choice(g_live, m, p=w / w.sum())
+    if layout == "singleton groups":
+        routed = rng.permutation(m)
+    tgt_group = routed.copy()
+    if layout == "overflow":
+        over = commit & (rng.random(m) < 0.3)
+        tgt_group[over] = g_live + rng.integers(0, n_over, over.sum())
+    by_group = np.argsort(group[:k], kind="stable")  # slots of group g: by_group[g*per:(g+1)*per]
+    pick = by_group[tgt_group * per + rng.integers(0, per, m)]
+    assigned = np.where(commit, pick, -1)
+    if layout == "edges":
+        # The edge clusters are committed to
+        edge_slots = np.r_[few, singles]
+        assigned[np.flatnonzero(commit)[: len(edge_slots)]] = edge_slots
+    routed = np.where(valid, routed, g_cap - 1)
+    order = np.argsort(routed, kind="stable")
+    out = dict(
+        g_ls=g_ls.astype(i32), g_n=g_n.astype(i32), t_pk=t_pk, t_pops=t_pops, g_cent=g_cent,
+        g_pops=g_pops, ls=ls_rows.astype(i32), ls_ref=ls_ref.astype(i32), n=n.astype(i32),
+        group=group.astype(i32), pos=pos.astype(i32), assigned=assigned.astype(i32),
+        row_n=row_n.astype(i32), order=order.astype(np.int64),
+    )
+    rows = _prep_buffer_rows(torch.from_numpy(row_ls.astype(i32)), torch.from_numpy(out["row_n"]))
+    out["row_ls"], out["row_pk"], out["row_single"] = rows[0].numpy(), rows[3].numpy(), rows[5].numpy()
+    return out
+
+
+def refresh_args(case: dict, device) -> tuple:
+    r"""``refresh_touched``'s arguments (``REFRESH_ARGS``) for ``case`` on
+    ``device``: fresh tables each call."""
+    return tuple(torch.from_numpy(np.array(case[k], copy=True)).to(device) for k in REFRESH_ARGS)
+
+
+def _refresh_reads(args: tuple) -> dict:
+    r"""What one call must move, counted from its arguments: the committed
+    rows (of them, the flagged ones the kernel reads packed), the distinct
+    touched groups, the distinct touched clusters with a pool row and
+    without (a singleton: its cell's bytes)."""
+    a = dict(zip(REFRESH_ARGS, args))
+    assigned = a["assigned"].cpu().numpy()
+    c_cap = a["n"].shape[0]
+    ok = (assigned >= 0) & (assigned < c_cap)
+    slots = np.unique(assigned[ok])
+    groups = np.unique(a["group"].cpu().numpy()[slots])
+    ref = a["ls_ref"].cpu().numpy()[slots]
+    return {
+        "committed": int(ok.sum()),
+        "committed_packed": int(a["row_single"].cpu().numpy()[ok].sum()),
+        "groups": len(groups), "pooled": int((ref >= 0).sum()), "singletons": int((ref < 0).sum()),
+    }
+
+
+def _refresh_bound(args: tuple) -> dict:
+    r"""The least time for one call of the refresh: each committed row read
+    once (its F / 8 packed bytes where it is flagged ``row_single``, else
+    its 4F bytes of sums), each touched group's ``g_ls`` row read, added
+    and read again (3 x 4F) with its count, each touched cluster's pool
+    row (4F) or, a singleton, its cell (F / 8) read, the touched cells
+    (F / 8 + 4) and routing centroids (F + 4) written, and the (M,) inputs
+    (assigned, count, flag, order) read once, over 3.35 TB/s.  The votes and
+    adds are a few operations a column, far below the bytes."""
+    r = _refresh_reads(args)
+    m, f = args[REFRESH_ARGS.index("row_ls")].shape
+    f8 = (f + 7) // 8
+    n_bytes = (
+        (r["committed"] - r["committed_packed"]) * 4 * f + r["committed_packed"] * f8
+        + r["groups"] * (3 * 4 * f + 8 + f + 4)
+        + r["pooled"] * (4 * f + 8) + r["singletons"] * (f8 + 8)
+        + (r["pooled"] + r["singletons"]) * (f8 + 4 + 8)
+        + m * (4 + 4 + 1 + 8)
+    )
+    return {
+        "work": (
+            f"M={m} ({r['committed']} committed rows, {r['committed_packed']} of them packed, "
+            f"into {r['groups']} groups; {r['pooled']} pool clusters and {r['singletons']} "
+            f"singletons revoted)"
+        ),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+
+
+def _refresh_equal(got: tuple, ref: tuple) -> list[str]:
+    r"""The names of the tables that differ between two calls' tables."""
+    return [n for n, a, b in zip(REFRESH_TABLES, got, ref) if not torch.equal(a, b)]
+
+
+def _refresh_check(case_args: tuple, where: str) -> tuple:
+    r"""The kernel on fresh tables equals the plain version's tables on
+    fresh tables, one call (two launches); the guard group's rows keep
+    their values; returns the kernel's tables.  The kernel runs twice on
+    the same start, so its scratch is shown left cleared by a call."""
+    from bblean_tpu_torch.ops import refresh as rf
+
+    n_tab = len(REFRESH_TABLES)
+    ref = tuple(t.clone() if i < n_tab else t for i, t in enumerate(case_args))
+    rf.refresh_touched_plain(*ref)
+    for _ in range(2):
+        got = tuple(t.clone() if i < n_tab else t for i, t in enumerate(case_args))
+        before = rf.launches
+        rf.refresh_touched(*got)
+        torch.cuda.synchronize()
+        if rf.launches != before + 1:
+            raise AssertionError(f"{where}: launches {before} -> {rf.launches}")
+        bad = _refresh_equal(got, ref)
+        if bad:
+            raise AssertionError(f"{where}: {', '.join(bad)} differ from the plain version's")
+    if not all(torch.equal(g[-1], c[-1]) for g, c in zip(got, case_args[:n_tab])):
+        raise AssertionError(f"{where}: the guard group's tables changed")
+    return got
+
+
+def _time_refresh(args: tuple) -> dict:
+    r"""One call of the refresh timed (``_time_case``) over copies of its
+    arguments in turn (each call folds into its copy's tables again: the
+    same work), beside its bound (``_refresh_bound``)."""
+    from bblean_tpu_torch.ops import refresh as rf
+
+    big = sum(args[REFRESH_ARGS.index(k)].numel() * 4 for k in ("row_ls", "g_ls"))
+    copies = _copies(args, big)
+    take = _in_turn(copies)
+    t = _time_case(
+        lambda: rf.refresh_touched(*take()), lambda: rf.refresh_touched_plain(*take()),
+        _refresh_bound(args), name=REFRESH_KERNELS, parts=True,
+    )
+    t["copies"] = len(copies)
+    return t
+
+
+def phase_refresh() -> dict:
+    r"""Phase 2h: the step's refresh kernel (``ops/refresh.py``,
+    ``csrc/refresh.cu``) bit-equal to its plain version (every table, the
+    guard group unchanged, the scratch left cleared) in every layout of
+    ``REFRESH_LAYOUTS`` at 8,192 rows of 2048 bits with tiles of 256 and
+    512 cells, at 2,048 rows of 264 bits (scalar loads, no bulk copies)
+    and at 300 rows of 100 bits (a byte tail), and timed on "t=0.3 runs"
+    and "overflow" at 8,192 rows over copies of the inputs in turn, beside
+    its bound (``_refresh_bound``).  The kernels line's record is timed on
+    a step of the fit (phase 4)."""
+    rng = np.random.default_rng(53)
+    timing = {}
+    cases = [(8192, N_FEATURES, fc, layout) for fc in (256, 512) for layout in REFRESH_LAYOUTS]
+    cases += [(2048, 264, 256, layout) for layout in ("t=0.3 runs", "edges", "overflow")]
+    cases += [(300, 100, 16, layout) for layout in ("t=0.3 runs", "edges", "guard")]
+    for m, f, fc, layout in cases:
+        case = refresh_case(rng, m, f, fc, layout)
+        args = refresh_args(case, "cuda")
+        _refresh_check(args, f"phase 2h M={m} F={f} Fc={fc} {layout}")
+        line = f"phase 2h refresh == plain: M={m} F={f} Fc={fc} {layout}: {_refresh_bound(args)['work']}"
+        if f == N_FEATURES and fc == 256 and layout in ("t=0.3 runs", "overflow"):
+            t = timing[layout] = _time_refresh(args)
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in t["parts_ms"].items())
+            line += _timing_text(t) + f" ({parts} ms); over {t['copies']} copies"
+        say(line)
+    return {"max_abs_err": 0.0, "timing": timing}  # bit-equal, else the phase failed
+
+
+class _RefreshWork:
+    r"""While installed in place of ``engine.batch._refresh_touched``,
+    counts the steps' refresh calls (``calls``); with ``plain`` (the plain
+    version, uncounted), holds the first three calls and every 25th after
+    bit-equal to it on clones of the same tables (``checked``); keeps the
+    arguments of call ``keep_at`` on the card, its tables as they were
+    before the call (``kept``, in ``REFRESH_ARGS`` order); with ``bounds``,
+    notes each call's bound (``_refresh_bound``, which reads the call's
+    rows on the host) in ``bound_ms``."""
+
+    def __init__(self, plain=None, keep_at: int | None = None, bounds: bool = False) -> None:
+        from bblean_tpu_torch.engine import batch as engine
+
+        self.engine, self.fn, self.plain = engine, engine._refresh_touched, plain
+        self.calls = self.checked = 0
+        self.keep_at, self.kept = keep_at, None
+        self.bounds = bounds
+        self.bound_ms: list[float] = []
+
+    def _call(self, state, assigned, row_ls, row_n, row_pk, row_single, order):
+        self.calls += 1
+        n_tab = len(REFRESH_TABLES)
+        args = tuple(getattr(state, k) for k in REFRESH_ARGS[:n_tab + 5]) + (
+            assigned, row_ls, row_n, row_pk, row_single, order,
+        )
+        check = self.plain is not None and (self.calls <= 3 or self.calls % 25 == 0)
+        start = tuple(t.clone() for t in args[:n_tab]) if check else None
+        if self.calls == self.keep_at:
+            self.kept = tuple(t.clone() for t in args)
+        if self.bounds:
+            self.bound_ms.append(_refresh_bound(args)["bound_ms"])
+        out = self.fn(state, assigned, row_ls, row_n, row_pk, row_single, order)
+        if check:
+            ref = start + args[n_tab:]
+            self.plain(*ref)
+            torch.cuda.synchronize()
+            bad = _refresh_equal(tuple(getattr(out, k) for k in REFRESH_TABLES), ref[:n_tab])
+            if bad:
+                raise AssertionError(
+                    f"refresh call {self.calls} of the fit: {', '.join(bad)} differ from the plain version's"
+                )
+            self.checked += 1
+        return out
+
+    def __enter__(self):
+        self.engine._refresh_touched = self._call
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.engine._refresh_touched = self.fn
+
+
+def phase_refresh_fit() -> dict:
+    r"""The refresh on the fit path: the 1M x 2048-bit input of phase 4
+    through ``BatchTree.fit_packed`` at t = 0.3 and t = 0.65 (phase 4's
+    settings), each fit's cluster count exactly the port's own, one kernel
+    call (two launches) a step and none of the plain version on CUDA
+    tensors, sampled calls held bit-equal to the plain version; then the
+    call of the t = 0.3 fit's 60th step timed (``_time_refresh``) beside
+    its bound.  ``python3 chip_smoke.py --only refresh`` runs phases 1, 2h
+    and this."""
+    from bblean_tpu_torch import BatchTree
+    from bblean_tpu_torch.fingerprints import make_fake_fingerprints
+    from bblean_tpu_torch.ops import refresh as rf
+
+    fps = make_fake_fingerprints(N_FPS, N_FEATURES, seed=SEED)
+    dev_fps = torch.from_numpy(fps).to("cuda")
+    del fps
+    kept = None
+    launches = 0
+    for thr in (0.3, 0.65):
+        with _PlainOnCuda() as plain:
+            original = plain.round_plain[(rf, "refresh_touched_plain")]
+            with _RefreshWork(original, keep_at=60 if thr == 0.3 else None) as work:
+                _reset_counts()
+                before = rf.launches
+                t0 = time.perf_counter()
+                tree = BatchTree(
+                    N_FEATURES, threshold=thr, batch_size=8192, device="cuda",
+                    **FIT_SETTINGS[thr],
+                )
+                tree.fit_packed(dev_fps, range(N_FPS))
+                ncl = tree.num_clusters
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            plain.check(f"the refresh fit t={thr}")
+        calls = rf.launches - before
+        launches += calls
+        say(
+            f"phase 2h fit t={thr}: {wall:.2f} s, {ncl} clusters (port's count "
+            f"{PORT_COUNTS[thr]}), {work.calls} refresh calls, {calls} kernel calls "
+            f"(two launches each), {work.checked} held == plain; groups {tree.num_groups}"
+        )
+        if ncl != PORT_COUNTS[thr]:
+            raise AssertionError(f"cluster count {ncl} is not the port's {PORT_COUNTS[thr]}")
+        if calls != work.calls or work.checked < 3:
+            raise AssertionError(f"{work.calls} refresh calls, {calls} kernel calls, {work.checked} held")
+        if work.kept is not None:
+            kept = work.kept
+        del tree
+        torch.cuda.empty_cache()
+    del dev_fps
+    t = _time_refresh(kept)
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in t["parts_ms"].items())
+    say(
+        f"phase 2h refresh at the t = 0.3 fit's 60th step:" + _timing_text(t)
+        + f" ({parts} ms); over {t['copies']} copies"
+    )
+    return {"max_abs_err": 0.0, "timing": {"fit": t}, "launches": launches}
+
+
+def _only_refresh() -> None:
+    r"""Phases 1, 2h and the refresh's fits alone (no kernels line, no
+    result line)."""
+    phase_device()
+    phase_refresh()
+    phase_refresh_fit()
+
+
 def _reset_counts() -> None:
     from bblean_tpu_torch.ops import (
-        commit_writes, leader_election, prefix_commit, route, tile_search as ts,
+        commit_writes, leader_election, prefix_commit, refresh, route, tile_search as ts,
     )
 
     ts.launches = 0
@@ -2069,6 +2470,7 @@ def _reset_counts() -> None:
     prefix_commit.launches = 0
     leader_election.launches = 0
     commit_writes.launches = 0
+    refresh.launches = 0
 
 
 def _counts() -> tuple[int, int, int]:
@@ -2253,8 +2655,9 @@ class _PlainOnCuda:
     ``route.route_groups_plain`` and ``route.best_group_sim_plain``, through
     which the route's wrappers reach theirs, of
     ``prefix_commit.prefix_commit_moments_plain``, and of
-    ``leader_election.elect_leaders_plain`` and
-    ``commit_writes.commit_writes_plain``.  ``self.plain`` and
+    ``leader_election.elect_leaders_plain``,
+    ``commit_writes.commit_writes_plain`` and
+    ``refresh.refresh_touched_plain``.  ``self.plain`` and
     ``self.route_plain`` are the uncounted originals."""
 
     def __init__(self) -> None:
@@ -2269,12 +2672,14 @@ class _PlainOnCuda:
         self.route_calls = dict.fromkeys(self.route_plain, 0)
         self.prefix, self.prefix_plain = prefix_commit, prefix_commit.prefix_commit_moments_plain
         self.prefix_calls = 0
-        from bblean_tpu_torch.ops import commit_writes, leader_election
+        from bblean_tpu_torch.ops import commit_writes, leader_election, refresh
 
-        # The round's other plain versions: (module, name) -> original
+        # The round's and the step's other plain versions: (module, name) ->
+        # original
         self.round_plain = {
             (leader_election, "elect_leaders_plain"): leader_election.elect_leaders_plain,
             (commit_writes, "commit_writes_plain"): commit_writes.commit_writes_plain,
+            (refresh, "refresh_touched_plain"): refresh.refresh_touched_plain,
         }
         self.round_calls = dict.fromkeys(self.round_plain, 0)
 
@@ -4242,8 +4647,8 @@ def _kernel_record(name, source, replaces, launches, phase, library_ms=None) -> 
 
 
 def _only_kernels() -> None:
-    r"""Phases 1, 2, 2b, 2c, 2d, 2e, 2f and 2g alone (no kernels line, no
-    result line)."""
+    r"""Phases 1, 2, 2b, 2c, 2d, 2e, 2f, 2g and 2h alone (no kernels line,
+    no result line)."""
     phase_device()
     phase_kernel()
     phase_row_kernel()
@@ -4252,6 +4657,7 @@ def _only_kernels() -> None:
     phase_prefix_commit()
     phase_election()
     phase_writes()
+    phase_refresh()
 
 
 def _only_sharded() -> None:
@@ -4313,6 +4719,8 @@ def main() -> None:
         return _only_analysis()
     if sys.argv[1:] == ["--only", "examples"]:
         return _only_examples()
+    if sys.argv[1:] == ["--only", "refresh"]:
+        return _only_refresh()
     kind = phase_device()
     kern = phase_kernel()
     rows = phase_row_kernel()
@@ -4321,9 +4729,11 @@ def main() -> None:
     prefix = phase_prefix_commit()
     phase_election()
     phase_writes()
+    phase_refresh()
     phase_cpu_vs_cuda()
     full = phase_full_size()
     prefix_fit = phase_prefix_fit(full["prefix_samples"])
+    refresh_fit = phase_refresh_fit()
     with _PlainOnCuda() as plain:
         examples = phase_examples()
         plain.check("phase 11")
@@ -4365,6 +4775,10 @@ def main() -> None:
             "commit_writes", "commit_writes.cu", "bblean_tpu/engine/batch.py:660",
             full["launches"]["commit-writes"], prefix_fit["writes"],
             prefix_fit["writes"]["timing"]["fit"]["library_ms"],
+        ),
+        _kernel_record(
+            "refresh_touched", "refresh.cu", "bblean_tpu/engine/batch.py:891",
+            refresh_fit["launches"], refresh_fit,
         ),
     ]}))
     say(json.dumps({"ok": True, "device": {

@@ -106,6 +106,11 @@ PORT_ONLY = {
         "round's pool and tile writes, which JAX fuses inside the jitted step "
         "of engine/batch.py"
     ),
+    "ops.refresh": (
+        "wrapper of csrc/refresh.cu and the plain version: the batch step's "
+        "refresh, engine/batch.py::_refresh_touched, which JAX fuses inside "
+        "the jitted step"
+    ),
 }
 
 

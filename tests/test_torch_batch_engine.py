@@ -202,17 +202,20 @@ def test_insert_round_in_call_search_matches_jax(captured) -> None:
 
 
 def test_refresh_touched_matches_jax(captured, one_round) -> None:
-    r"""The step's refresh after the round above (its assigned rows)."""
-    _fps, _state, jrows, _trows = captured
+    r"""The step's refresh after the round above (its assigned rows), with
+    the step's packed rows, their flags and its sort plan's order, as
+    ``_batch_step_impl`` calls it."""
+    _fps, _state, jrows, trows = captured
     (jstate, _jp, jassigned, _js), _port = one_round
     row_ls, row_n = np.asarray(jrows[0]), np.asarray(jrows[1])
     ref = jax.jit(jb._refresh_touched)(
         _jax_state(jstate), jnp.asarray(jassigned), jnp.asarray(row_ls),
         jnp.asarray(row_n),
     )
+    order = torch.sort(torch.from_numpy(jassigned), stable=True).indices
     got = tb._refresh_touched(
         state_from_numpy(jstate, "cpu"), torch.from_numpy(jassigned),
-        torch.from_numpy(row_ls), torch.from_numpy(row_n),
+        torch.from_numpy(row_ls), torch.from_numpy(row_n), trows[3], trows[5], order,
     )
     _assert_states_equal(_jax_np(ref), state_to_numpy(got))
 

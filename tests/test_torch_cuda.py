@@ -8,9 +8,12 @@ segments, sums past 2^16, the vote's edge, several column tiles, with and
 without ``need``, the look-back's stress cases, inside a captured CUDA
 graph), the leader election (every layout, from the packed rows or sims,
 with and without a plan, one group of 8,192 rejected rows, tile edges,
-ties across tiles, byte tails, in a captured graph) and the pool and tile
+ties across tiles, byte tails, in a captured graph), the pool and tile
 writes (every layout, byte tails, writes past capacity, in a captured
-graph) against their plain versions, CPU and CUDA fits giving the
+graph) and the step's refresh (every layout, tiles of 256 and 512 cells,
+byte tails, any row order, a mid-fit step of the 1M configuration, two
+launches with no sync or allocation, a side stream) against their plain
+versions, CPU and CUDA fits giving the
 same labels, predict giving the same answer at aligned and unaligned
 batch sizes, the side ops (popcount, Tanimoto, k-means, t-SNE) against the
 same functions on the CPU, one command-line run on each device, and the
@@ -1039,3 +1042,122 @@ def test_commit_writes_wrapper_rejects_bad_inputs(cuda) -> None:
     for i, t in bad.items():
         with pytest.raises(ValueError):
             cw.commit_writes(*args[:i], t, *args[i + 1:])
+
+
+REFRESH_LAYOUTS = (
+    "t=0.3 runs", "one hot group", "singleton groups", "overflow", "none", "guard", "edges",
+)
+
+
+@pytest.mark.parametrize("layout", REFRESH_LAYOUTS)
+@pytest.mark.parametrize("m,f,fc", [(8192, 2048, 256), (2048, 2048, 512), (2048, 264, 256), (300, 100, 16)])
+def test_refresh_kernel_matches_plain(cuda, m, f, fc, layout) -> None:
+    r"""Every refresh layout at the step's width with tiles of 256 and 512
+    cells and at 264 and 100 bits (scalar loads, byte tails): every table
+    bit-equal to the plain version's, the guard group unchanged, one call
+    (two launches), twice on the same start (the scratch left cleared)."""
+    import chip_smoke
+
+    assert chip_smoke.REFRESH_LAYOUTS == REFRESH_LAYOUTS
+    case = chip_smoke.refresh_case(np.random.default_rng(59), m, f, fc, layout)
+    chip_smoke._refresh_check(chip_smoke.refresh_args(case, cuda), f"M={m} F={f} Fc={fc} {layout}")
+
+
+@pytest.mark.parametrize("layout", ["t=0.3 runs", "overflow", "edges"])
+def test_refresh_kernel_in_any_order(cuda, layout) -> None:
+    r"""The order sets only the runs the kernel adds in registers: rows in
+    row order and in a random order give the plain version's tables."""
+    import chip_smoke
+
+    rng = np.random.default_rng(60)
+    case = chip_smoke.refresh_case(rng, 2048, 2048, 256, layout)
+    args = chip_smoke.refresh_args(case, cuda)
+    for order in (np.arange(2048), rng.permutation(2048)):
+        got = args[:-1] + (torch.from_numpy(order).to(cuda),)
+        chip_smoke._refresh_check(got, f"order {layout}")
+
+
+def test_refresh_kernel_on_a_mid_fit_step(cuda) -> None:
+    r"""The 1M configuration's fit (t = 0.3, batch 8,192, phase 4's
+    capacities) over its first 262,144 rows: sampled refresh calls held
+    bit-equal to the plain version, and the 20th step's call again on its
+    own inputs."""
+    import chip_smoke
+    from bblean_tpu_torch.ops import refresh as rf
+
+    fps = make_fake_fingerprints(1 << 18, 2048, seed=SEED)
+    with chip_smoke._RefreshWork(rf.refresh_touched_plain, keep_at=20) as work:
+        tree = BatchTree(
+            2048, threshold=0.3, batch_size=8192, device="cuda", **chip_smoke.FIT_SETTINGS[0.3],
+        )
+        tree.fit_packed(torch.from_numpy(fps).to(cuda), range(1 << 18))
+        torch.cuda.synchronize()
+    assert work.calls >= 32 and work.checked >= 4 and work.kept is not None
+    chip_smoke._refresh_check(work.kept, "the 20th step of the 1M configuration's fit")
+
+
+def test_refresh_launches_twice_without_a_sync_or_an_allocation(cuda) -> None:
+    r"""A call is two launches (the fold, the votes) and nothing else on
+    the card: no copy, no fill, no host read (sync debug mode raises on
+    one), no allocation once its scratch exists."""
+    import chip_smoke
+    from bblean_tpu_torch.ops import refresh as rf
+    from torch.profiler import ProfilerActivity, profile
+
+    case = chip_smoke.refresh_case(np.random.default_rng(61), 8192, 2048, 256, "t=0.3 runs")
+    args = chip_smoke.refresh_args(case, cuda)
+    rf.refresh_touched(*args)  # makes the scratch
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                rf.refresh_touched(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() == allocated
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 6, names
+    assert all(any(k in n for k in chip_smoke.REFRESH_KERNELS) for n in names), names
+
+
+def test_refresh_on_another_stream(cuda) -> None:
+    r"""A call on a side stream takes a scratch of its own and gives the
+    plain version's tables."""
+    import chip_smoke
+
+    case = chip_smoke.refresh_case(np.random.default_rng(62), 2048, 2048, 256, "one hot group")
+    args = chip_smoke.refresh_args(case, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chip_smoke._refresh_check(args, "a side stream")
+
+
+def test_refresh_wrapper_rejects_bad_inputs(cuda) -> None:
+    import chip_smoke
+    from bblean_tpu_torch.ops import refresh as rf
+
+    case = chip_smoke.refresh_case(np.random.default_rng(63), 64, 64, 256, "t=0.3 runs")
+    args = chip_smoke.refresh_args(case, cuda)
+    at = {name: i for i, name in enumerate(chip_smoke.REFRESH_ARGS)}
+    bad = {
+        at["g_ls"]: args[at["g_ls"]].to(torch.int64),  # the sums' dtype
+        at["t_pk"]: args[at["t_pk"]][..., :-1],  # the tiles' bytes
+        at["g_cent"]: args[at["g_cent"]].to(torch.uint8),  # the centroids' dtype
+        at["n"]: args[at["n"]][:-1],  # the counts' length
+        at["row_ls"]: args[at["row_ls"]].t().contiguous().t(),  # not contiguous
+        at["row_pk"]: args[at["row_pk"]][:, :-1],  # the packed rows' bytes
+        at["row_single"]: args[at["row_single"]].to(torch.uint8),  # the flag's dtype
+        at["order"]: args[at["order"]].to(torch.int32),  # the order's dtype
+        at["assigned"]: args[at["assigned"]].cpu(),  # another device
+    }
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            rf.refresh_touched(*args[:i], t, *args[i + 1:])
+    for i in (at["row_pk"], at["row_single"], at["order"]):
+        with pytest.raises(ValueError, match="needed on the card"):
+            rf.refresh_touched(*args[:i], None, *args[i + 1:])

@@ -28,6 +28,7 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch.ops.tile_search, bblean_tpu_torch.fingerprints\n"
         "import bblean_tpu_torch.ops.route, bblean_tpu_torch.ops.prefix_commit\n"
         "import bblean_tpu_torch.ops.leader_election, bblean_tpu_torch.ops.commit_writes\n"
+        "import bblean_tpu_torch.ops.refresh\n"
         "import bblean_tpu_torch._timer, bblean_tpu_torch._config\n"
         "import bblean_tpu_torch._console, bblean_tpu_torch._memory\n"
         "import bblean_tpu_torch._device, bblean_tpu_torch.utils, bblean_tpu_torch.cli\n"
