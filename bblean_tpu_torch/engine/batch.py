@@ -63,6 +63,7 @@ only where a cluster's sums pass 2^24 (tests hold the rest to JAX exactly):
 from __future__ import annotations
 
 import functools
+import time
 import typing as tp
 from pathlib import Path
 
@@ -106,6 +107,18 @@ _CENT_DT = torch.int8
 # Device-to-host scalar reads made by the engine (round-loop conditions,
 # split predicates, live-group counts, flush-boundary pulls)
 host_syncs = 0
+
+# Refinements run (``BatchTree.refine_inplace``), the CF buffer rows (one a
+# surviving cluster) and exploded fingerprint rows they inserted, and the
+# host wall in ns of their three stages: the clusters pulled to the host and
+# the tree reset; the survivors' ``insert_buffers``; the exploded rows
+# loaded and fitted
+refine_calls = 0
+refine_buffer_rows = 0
+refine_exploded_rows = 0
+refine_extract_ns = 0
+refine_buffers_ns = 0
+refine_rows_ns = 0
 
 # A replayed round or split pass advances the kernels' launch counts by what
 # its capture counted (``engine/graphs.py``)
@@ -1574,6 +1587,7 @@ class BatchTree:
             mol_indices,
         )
 
+    @spans.spanned("buffers")
     def insert_buffers(
         self,
         buffers: np.ndarray,
@@ -1587,16 +1601,17 @@ class BatchTree:
         m = self.batch_size
         for start in range(0, len(ls), m):
             stop = min(start + m, len(ls))
-            chunk_ls = ls[start:stop]
-            chunk_n = ns[start:stop]
-            pad = m - (stop - start)
-            if pad:
-                chunk_ls = np.pad(chunk_ls, ((0, pad), (0, 0)))
-                chunk_n = np.pad(chunk_n, (0, pad))
-            rows = _prep_buffer_rows(
-                torch.from_numpy(np.ascontiguousarray(chunk_ls)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(chunk_n)).to(self.device),
-            )
+            with spans.span("buffers.stage"):
+                chunk_ls = ls[start:stop]
+                chunk_n = ns[start:stop]
+                pad = m - (stop - start)
+                if pad:
+                    chunk_ls = np.pad(chunk_ls, ((0, pad), (0, 0)))
+                    chunk_n = np.pad(chunk_n, (0, pad))
+                rows = _prep_buffer_rows(
+                    torch.from_numpy(np.ascontiguousarray(chunk_ls)).to(self.device),
+                    torch.from_numpy(np.ascontiguousarray(chunk_n)).to(self.device),
+                )
             self._submit_batch(rows, mols[start:stop], chunk_n > 0)
         self.flush()
 
@@ -1799,6 +1814,7 @@ class BatchTree:
         self._row_slots = []
         self._row_mols = []
 
+    @spans.spanned("refine")
     def refine_inplace(
         self,
         X: "np.ndarray | Path | str | tp.Sequence[Path]",
@@ -1812,36 +1828,51 @@ class BatchTree:
     ) -> "BatchTree":
         r"""Explode the ``n_largest`` clusters into singletons and re-fit.
 
-        Surviving clusters re-insert as pre-aggregated CF buffers,
-        largest first, then the exploded rows re-insert as singletons
-        (their fingerprints are reloaded from ``X`` by molecule id).
+        Three stages, each timed into the module's ``refine_*_ns``
+        counters: every cluster's size, dense sums and members are pulled
+        to the host and the tree is reset; the surviving clusters
+        re-insert as pre-aggregated CF buffers, largest first; then the
+        exploded rows re-insert as singletons (their fingerprints are
+        reloaded from ``X`` by molecule id).
         """
+        global refine_calls, refine_buffer_rows, refine_exploded_rows
+        global refine_extract_ns, refine_buffers_ns, refine_rows_ns
         if n_largest < 0:
             raise ValueError("n_largest must be >= 0")
-        sizes = self.cluster_sizes()
-        ls = self.linear_sums()
-        mols = self.cluster_mols()
-        order = np.argsort(-sizes, kind="stable")
-        big, rest = order[:n_largest], order[n_largest:]
-
-        exploded_mols = [m for i in big for m in mols[i]]
-        rows, row_mols = _load_rows_by_mol(
-            X, exploded_mols, initial_mol, input_is_packed
-        )
-        buffers = np.concatenate(
-            [ls[rest], sizes[rest, None]], axis=1, dtype=np.int64
-        )
-        del ls
-        buffer_mols = [mols[i] for i in rest]
-
-        self.reset(
-            threshold=threshold, merge_criterion=merge_criterion,
-            tolerance=tolerance,
-        )
+        t0 = time.perf_counter_ns()
+        with spans.span("refine.extract"):
+            sizes = self.cluster_sizes()
+            ls = self.linear_sums()
+            mols = self.cluster_mols()
+            order = np.argsort(-sizes, kind="stable")
+            big, rest = order[:n_largest], order[n_largest:]
+            exploded_mols = [m for i in big for m in mols[i]]
+            buffers = np.concatenate(
+                [ls[rest], sizes[rest, None]], axis=1, dtype=np.int64
+            )
+            del ls
+            buffer_mols = [mols[i] for i in rest]
+            self.reset(
+                threshold=threshold, merge_criterion=merge_criterion,
+                tolerance=tolerance,
+            )
+        t1 = time.perf_counter_ns()
         if len(buffers):
             self.insert_buffers(buffers, buffer_mols)
+        t2 = time.perf_counter_ns()
+        with spans.span("refine.load"):
+            rows, row_mols = _load_rows_by_mol(
+                X, exploded_mols, initial_mol, input_is_packed
+            )
         if len(rows):
             self.fit_packed(rows, row_mols)
+        t3 = time.perf_counter_ns()
+        refine_calls += 1
+        refine_buffer_rows += len(buffers)
+        refine_exploded_rows += len(rows)
+        refine_extract_ns += t1 - t0
+        refine_buffers_ns += t2 - t1
+        refine_rows_ns += t3 - t2
         return self
 
     def recluster_inplace(

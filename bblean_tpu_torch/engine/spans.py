@@ -21,8 +21,9 @@ A record is ``(name, id, parent, start_ns, end_ns, root, program)``:
 
 - ``id`` counts up from 1 in the process; ``parent`` is the span open
   when this one opened (0: none); ``root`` is the outermost span open at
-  the time, so every span of one fit carries its ``fit`` span's id, as a
-  request id;
+  the time, so every span of one fit carries its ``fit`` span's id, and
+  every span of one refine (the fit of its exploded rows included) its
+  ``refine`` span's id, as a request id;
 - ``start_ns`` and ``end_ns`` are read from ``time.time_ns()``, the clock
   on which ``torch.profiler`` stamps its host events, so a span can be
   laid over a profile: a kernel belongs to the innermost span open when
@@ -36,6 +37,7 @@ The spans (``engine/batch.py`` unless named):
 
 ========================  ==================================================
 ``fit``                   ``BatchTree.fit_packed``, the root of a fit
+                          called on its own
 ``stage_chunk``           a host chunk padded, made contiguous and copied
                           to the device
 ``window``                one scan window (``_submit_scan``), with the
@@ -57,6 +59,17 @@ The spans (``engine/batch.py`` unless named):
 ``grow``                  the tables grown (``_grow_state``)
 ``sync``                  a device-to-host read (``_host``): the host waits
                           for the device; always a leaf
+``refine``                ``BatchTree.refine_inplace``, the root of a
+                          refine
+``refine.extract``        the clusters' sizes, dense sums and members pulled
+                          to the host, the survivors' buffer array built and
+                          the tree reset
+``refine.load``           the exploded rows read back from the input
+                          (``_load_rows_by_mol``); their ``fit`` follows
+``buffers``               ``BatchTree.insert_buffers``: CF buffer rows, one
+                          batch step each batch
+``buffers.stage``         one batch of buffers padded, made contiguous,
+                          copied to the device and prepared as step rows
 ========================  ==================================================
 """
 
@@ -80,7 +93,7 @@ class Span(tp.NamedTuple):
     parent: int  # 0: no span was open
     start_ns: int
     end_ns: int
-    root: int  # the outermost span open (a fit's ``fit`` span)
+    root: int  # the outermost span open (a fit's ``fit`` span, a refine's ``refine``)
     program: str | None = None
 
 
