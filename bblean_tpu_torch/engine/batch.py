@@ -110,15 +110,18 @@ host_syncs = 0
 
 # Refinements run (``BatchTree.refine_inplace``), the CF buffer rows (one a
 # surviving cluster) and exploded fingerprint rows they inserted, and the
-# host wall in ns of their three stages: the clusters pulled to the host and
-# the tree reset; the survivors' ``insert_buffers``; the exploded rows
-# loaded and fitted
+# host wall in ns of their three stages: the order, the members, the
+# survivors gathered on the device and the tree reset; the survivors' batch
+# steps; the exploded rows loaded and fitted
 refine_calls = 0
 refine_buffer_rows = 0
 refine_exploded_rows = 0
 refine_extract_ns = 0
 refine_buffers_ns = 0
 refine_rows_ns = 0
+# Buffer rows assembled on the device from a tree's own tables (a refine's
+# survivors, a recluster's clusters); a user's ``insert_buffers`` adds none
+refine_device_buffer_rows = 0
 
 # A replayed round or split pass advances the kernels' launch counts by what
 # its capture counted (``engine/graphs.py``)
@@ -236,11 +239,93 @@ def _cluster_ls_of(
     r"""(M, F) int32 linear sums of cluster ``slots``: the pool row when
     allocated, else the exact singleton bits from the packed tile entry."""
     slots = slots.long()
-    ref = state.ls_ref[slots]
-    pool_rows = state.ls[ref.clamp_min(0).long()]
     pk = state.t_pk[state.group[slots].long(), state.pos[slots].long()]
+    return _ls_rows(state.ls_ref[slots], state.ls, pk, n_features)
+
+
+def _ls_rows(
+    ref: torch.Tensor, pool: torch.Tensor, pk: torch.Tensor, n_features: int
+) -> torch.Tensor:
+    r"""(M, F) int32 rows: ``pool[ref]`` where ``ref >= 0``, else the bits
+    of the packed rows ``pk``."""
+    pool_rows = pool[ref.clamp_min(0).long()]
     bits = unpack_fingerprints_device(pk, n_features).to(_I32)
     return torch.where((ref >= 0)[:, None], pool_rows, bits)
+
+
+class _Survivors:
+    r"""Clusters that re-enter a reset tree whole, one CF buffer row each,
+    gathered on the device from the old tables before they are dropped.
+
+    In entry order: counts ``n``; ``ref``, the row of ``ls`` that holds
+    the sums where the cluster had a pool row (``ls_ref >= 0``, as
+    :func:`_cluster_ls_of` decides, whatever the count), else -1; ``bit``,
+    the row of ``pk`` that holds the packed tile bits of the others (0 for
+    the pooled).  On the host: the counts (``sizes``) and the members as
+    one flat id array (``mols``) with the ``R + 1`` offsets that bound
+    each row's ids (``bounds``)."""
+
+    def __init__(
+        self,
+        state: BatchState,
+        order: np.ndarray,
+        sizes: np.ndarray,
+        mols: np.ndarray,
+        bounds: np.ndarray,
+    ) -> None:
+        slots = torch.from_numpy(order).to(state.n.device)
+        ref = state.ls_ref[slots]
+        pooled = ref >= 0
+        self.n = state.n[slots]
+        self.ref = torch.where(pooled, torch.cumsum(pooled, 0) - 1, -1)
+        self.bit = torch.where(pooled, 0, torch.cumsum(~pooled, 0) - 1)
+        loose = slots[~pooled]
+        self.ls = _at_least_one_row(state.ls[ref[pooled].long()])
+        self.pk = _at_least_one_row(
+            state.t_pk[state.group[loose].long(), state.pos[loose].long()]
+        )
+        self.sizes, self.mols, self.bounds = sizes[order], mols, bounds
+
+    def __len__(self) -> int:
+        return len(self.sizes)
+
+    def batch(
+        self, start: int, m: int, n_features: int
+    ) -> tuple[tuple[torch.Tensor, ...], tuple[np.ndarray, np.ndarray], np.ndarray]:
+        r"""Rows ``[start, start + m)`` as one batch step's rows (zero rows
+        of count 0 past the end), their members and the host's mask of
+        rows to insert."""
+        stop = min(start + m, len(self))
+        row_ls = _ls_rows(
+            self.ref[start:stop], self.ls, self.pk[self.bit[start:stop]], n_features
+        )
+        rows = _prep_buffer_rows(_pad_rows(row_ls, m), _pad_rows(self.n[start:stop], m))
+        bounds = self.bounds[start : stop + 1]
+        mols = (self.mols[bounds[0] : bounds[-1]], np.diff(bounds))
+        host_valid = np.zeros(m, bool)
+        host_valid[: stop - start] = self.sizes[start:stop] > 0
+        return rows, mols, host_valid
+
+    def drop(self) -> None:
+        r"""Free the device store."""
+        self.n = self.ref = self.bit = self.ls = self.pk = None
+
+
+def _at_least_one_row(t: torch.Tensor) -> torch.Tensor:
+    r"""``t``, or one zero row where it has none (a gather's target)."""
+    return t if len(t) else t.new_zeros((1, *t.shape[1:]))
+
+
+def _regroup(
+    flat: np.ndarray, bounds: np.ndarray, order: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    r"""Members of clusters ``order`` (slot ids into the CSR ``flat`` /
+    ``bounds``), one after another: the flat ids and their own offsets."""
+    starts = bounds[order]
+    lens = bounds[order + 1] - starts
+    new_bounds = np.concatenate([[0], np.cumsum(lens)])
+    take = np.arange(new_bounds[-1]) + np.repeat(starts - new_bounds[:-1], lens)
+    return flat[take], new_bounds
 
 
 def _pad_rows(t: torch.Tensor, rows: int, fill: int = 0) -> torch.Tensor:
@@ -1339,9 +1424,13 @@ class BatchTree:
         self.stage_windows = max(1, stage_windows)
         self._boundary_queue: list[dict] = []
         # Per-inserted-row slot assignments + mol bookkeeping (host side):
-        # flat mol ids per scan window, a list of mol ids per row for buffers
+        # flat mol ids per scan window, a list of mol ids per row for a
+        # user's buffers, (flat mol ids, one length a row) for the buffers
+        # of a refine or a recluster
         self._row_slots: list[tuple[tp.Any, int]] = []
-        self._row_mols: list[np.ndarray | list[list[int]]] = []
+        self._row_mols: list[
+            np.ndarray | list[list[int]] | tuple[np.ndarray, np.ndarray]
+        ] = []
 
     def _scalars(self) -> tuple[torch.Tensor, torch.Tensor]:
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -1615,14 +1704,30 @@ class BatchTree:
             self._submit_batch(rows, mols[start:stop], chunk_n > 0)
         self.flush()
 
+    @spans.spanned("buffers")
+    def _insert_survivors(self, surv: _Survivors) -> None:
+        r"""``insert_buffers`` for clusters gathered on the device: each
+        batch is assembled there from ``surv``, which is freed once the
+        last batch is submitted."""
+        global refine_device_buffer_rows
+        m = self.batch_size
+        for start in range(0, len(surv), m):
+            with spans.span("buffers.stage"):
+                rows, mols, host_valid = surv.batch(start, m, self.n_features)
+            self._submit_batch(rows, mols, host_valid)
+        refine_device_buffer_rows += len(surv)
+        surv.drop()
+        self.flush()
+
     def _submit_batch(
         self,
         rows: tuple[torch.Tensor, ...],
-        mols: list[list[int]],
+        mols: list[list[int]] | tuple[np.ndarray, np.ndarray],
         host_valid: np.ndarray,
     ) -> None:
         r"""Run one batch step and queue its boundary (settled, with its
-        retries, every ``split_interval`` batches)."""
+        retries, every ``split_interval`` batches).  ``mols`` holds one
+        entry a row: a list of mol ids each, or flat ids and lengths."""
         m = self.batch_size
         self._ensure_capacity(m)
         thr, tol = self._scalars()
@@ -1636,7 +1741,8 @@ class BatchTree:
         # Creations open at most ceil(n/tile) chunk groups per routed group;
         # in-step clamping pends anything beyond capacity
         self._g_upper += max(16, 4 * (n_valid // self.tile + 1))
-        self._row_slots.append((assigned, len(mols)))
+        count = len(mols[1]) if isinstance(mols, tuple) else len(mols)
+        self._row_slots.append((assigned, count))
         self._row_mols.append(mols)
         self._boundary_queue.append(
             {
@@ -1796,13 +1902,16 @@ class BatchTree:
     ) -> None:
         r"""Drop all clusters (a fresh state on ``device`` and cleared host
         bookkeeping), optionally switching the merge criterion, threshold
-        or tolerance for the next fit.  Capacities are kept."""
+        or tolerance for the next fit.  Capacities are kept.  The old
+        tables are released before the new ones are made, so the device
+        never holds both."""
         if threshold is not None:
             self.threshold = threshold
         if merge_criterion is not None:
             self.merge_criterion = merge_criterion
         if tolerance is not None:
             self.tolerance = tolerance
+        self.state = None
         self.state = _init_state(
             self.capacity, self.g_capacity, self.tile, self.n_features,
             self.ls_capacity, self.device,
@@ -1829,11 +1938,13 @@ class BatchTree:
         r"""Explode the ``n_largest`` clusters into singletons and re-fit.
 
         Three stages, each timed into the module's ``refine_*_ns``
-        counters: every cluster's size, dense sums and members are pulled
-        to the host and the tree is reset; the surviving clusters
-        re-insert as pre-aggregated CF buffers, largest first; then the
-        exploded rows re-insert as singletons (their fingerprints are
-        reloaded from ``X`` by molecule id).
+        counters: the clusters are ordered by size on the host, their
+        members taken as one flat id array, the survivors' counts and sums
+        gathered on the device, and the tree reset; the survivors
+        re-insert whole as CF buffer rows, largest first, each batch
+        assembled on the device; then the exploded rows re-insert as
+        singletons (their fingerprints are reloaded from ``X`` by molecule
+        id).
         """
         global refine_calls, refine_buffer_rows, refine_exploded_rows
         global refine_extract_ns, refine_buffers_ns, refine_rows_ns
@@ -1842,23 +1953,18 @@ class BatchTree:
         t0 = time.perf_counter_ns()
         with spans.span("refine.extract"):
             sizes = self.cluster_sizes()
-            ls = self.linear_sums()
-            mols = self.cluster_mols()
             order = np.argsort(-sizes, kind="stable")
             big, rest = order[:n_largest], order[n_largest:]
-            exploded_mols = [m for i in big for m in mols[i]]
-            buffers = np.concatenate(
-                [ls[rest], sizes[rest, None]], axis=1, dtype=np.int64
-            )
-            del ls
-            buffer_mols = [mols[i] for i in rest]
+            flat, bounds = self._cluster_members()
+            exploded_mols = _regroup(flat, bounds, big)[0].tolist()
+            surv = _Survivors(self.state, rest, sizes, *_regroup(flat, bounds, rest))
             self.reset(
                 threshold=threshold, merge_criterion=merge_criterion,
                 tolerance=tolerance,
             )
         t1 = time.perf_counter_ns()
-        if len(buffers):
-            self.insert_buffers(buffers, buffer_mols)
+        if len(surv):
+            self._insert_survivors(surv)
         t2 = time.perf_counter_ns()
         with spans.span("refine.load"):
             rows, row_mols = _load_rows_by_mol(
@@ -1868,7 +1974,7 @@ class BatchTree:
             self.fit_packed(rows, row_mols)
         t3 = time.perf_counter_ns()
         refine_calls += 1
-        refine_buffer_rows += len(buffers)
+        refine_buffer_rows += len(surv)
         refine_exploded_rows += len(rows)
         refine_extract_ns += t1 - t0
         refine_buffers_ns += t2 - t1
@@ -1888,20 +1994,15 @@ class BatchTree:
         rng = np.random.default_rng(seed)
         for _ in range(iterations):
             sizes = self.cluster_sizes()
-            ls = self.linear_sums()
-            mols = self.cluster_mols()
             order = (
                 rng.permutation(len(sizes))
                 if shuffle
                 else np.argsort(-sizes, kind="stable")
             )
-            buffers = np.concatenate(
-                [ls[order], sizes[order, None]], axis=1, dtype=np.int64
-            )
-            del ls
-            buffer_mols = [mols[i] for i in order]
+            members = _regroup(*self._cluster_members(), order)
+            surv = _Survivors(self.state, order, sizes, *members)
             self.reset(threshold=self.threshold + extra_threshold)
-            self.insert_buffers(buffers, buffer_mols)
+            self._insert_survivors(surv)
         return self
 
     # -- extraction ----------------------------------------------------------
@@ -1992,6 +2093,10 @@ class BatchTree:
             if isinstance(mols, np.ndarray):  # singleton rows, flat ids
                 mol_parts.append(mols)
                 slot_parts.append(slots)
+            elif isinstance(mols, tuple):  # buffer rows: flat ids, lengths
+                flat, lens = mols
+                mol_parts.append(flat)
+                slot_parts.append(np.repeat(slots[: len(lens)], lens))
             else:  # buffer rows: one list of mol ids per row
                 lens = np.fromiter(
                     (len(ml) for ml in mols), dtype=np.int64, count=len(mols)
@@ -2016,20 +2121,21 @@ class BatchTree:
         out[mols] = slots
         return out
 
-    def cluster_mols(self) -> list[list[int]]:
-        r"""Molecule ids per cluster slot (slot order, not size order)."""
+    def _cluster_members(self) -> tuple[np.ndarray, np.ndarray]:
+        r"""Molecule ids of every cluster slot, in slot order and insertion
+        order within a slot, as one flat int64 array and the ``C + 1``
+        offsets that bound each slot's ids."""
         ncl = self.num_clusters
         mols, slots = self._flat_assignments()
-        if not len(mols):
-            return [[] for _ in range(ncl)]
         order = np.argsort(slots, kind="stable")  # keeps insertion order
-        mols_sorted = mols[order]
-        slots_sorted = slots[order]
-        bounds = np.searchsorted(
-            slots_sorted, np.arange(ncl + 1), side="left"
-        ).tolist()
-        flat = mols_sorted.tolist()
-        return [flat[bounds[i] : bounds[i + 1]] for i in range(ncl)]
+        bounds = np.searchsorted(slots[order], np.arange(ncl + 1), side="left")
+        return mols[order], bounds
+
+    def cluster_mols(self) -> list[list[int]]:
+        r"""Molecule ids per cluster slot (slot order, not size order)."""
+        flat, bounds = self._cluster_members()
+        flat, bounds = flat.tolist(), bounds.tolist()
+        return [flat[bounds[i] : bounds[i + 1]] for i in range(len(bounds) - 1)]
 
 
 def _next_pow2(x: int) -> int:

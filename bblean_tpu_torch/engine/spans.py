@@ -61,15 +61,17 @@ The spans (``engine/batch.py`` unless named):
                           for the device; always a leaf
 ``refine``                ``BatchTree.refine_inplace``, the root of a
                           refine
-``refine.extract``        the clusters' sizes, dense sums and members pulled
-                          to the host, the survivors' buffer array built and
-                          the tree reset
+``refine.extract``        the clusters' sizes and order, their members as
+                          one flat id array, the survivors' counts and sums
+                          gathered on the device, and the tree reset
 ``refine.load``           the exploded rows read back from the input
                           (``_load_rows_by_mol``); their ``fit`` follows
-``buffers``               ``BatchTree.insert_buffers``: CF buffer rows, one
-                          batch step each batch
-``buffers.stage``         one batch of buffers padded, made contiguous,
-                          copied to the device and prepared as step rows
+``buffers``               ``BatchTree.insert_buffers`` (a user's host CF
+                          rows) or a refine's or recluster's survivors: CF
+                          buffer rows, one batch step each batch
+``buffers.stage``         one batch of buffers made step rows: a user's
+                          padded, made contiguous and copied to the device;
+                          survivors gathered and padded on the device
 ========================  ==================================================
 """
 

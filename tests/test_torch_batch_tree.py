@@ -236,3 +236,112 @@ def test_pool_leak_and_recluster_match_jax() -> None:
     assert t.pool_dead_rows == j.pool_dead_rows
     np.testing.assert_array_equal(t.assignments(), j.assignments())
     assert t.cluster_mols() == j.cluster_mols()
+
+
+# -- the refine's handoff on the device against the host path it replaced --
+
+
+def _handoff_by_host(tree, kind, X=None, n_largest=0, shuffle=False, **kw):
+    r"""A refine (``kind`` "refine") or a recluster as the port ran them
+    before the handoff moved to the device: dense sums and member lists on
+    the host, an int64 buffer array, the public ``insert_buffers``."""
+    sizes = tree.cluster_sizes()
+    ls = tree.linear_sums()
+    mols = tree.cluster_mols()
+    if kind == "refine":
+        order = np.argsort(-sizes, kind="stable")
+        big, rest = order[:n_largest], order[n_largest:]
+        exploded = [m for i in big for m in mols[i]]
+        tree.reset(**kw)
+    else:
+        rng = np.random.default_rng(kw.pop("seed", None))
+        rest = rng.permutation(len(sizes)) if shuffle else np.argsort(-sizes, kind="stable")
+        exploded = []
+        tree.reset(threshold=tree.threshold)
+    buffers = np.concatenate([ls[rest], sizes[rest, None]], axis=1, dtype=np.int64)
+    tree.insert_buffers(buffers, [mols[i] for i in rest])
+    rows, row_mols = tb._load_rows_by_mol(X, exploded, 0, True) if exploded else ([], [])
+    if len(rows):
+        tree.fit_packed(rows, row_mols)
+
+
+def _pooled_single_tree(packed, n_features, **kw):
+    r"""A fitted tree in which five singletons hold pool rows of twice
+    their bits, set by hand: a count of 1 whose sums only ``ls_ref`` finds
+    (the tile keeps the bits)."""
+    tree = tb.BatchTree(n_features, device="cpu", **kw)
+    tree.fit_packed(packed, range(len(packed)))
+    st = tree.state
+    singles = torch.nonzero(st.n[: tree.num_clusters] == 1)[:5, 0]
+    rows = int(st.num_ls) + torch.arange(len(singles), dtype=torch.int32)
+    assert len(singles) == 5 and int(rows[-1]) < st.ls.shape[0] - 1
+    st.ls[rows.long()] = 2 * tb._cluster_ls_of(st, singles, n_features)
+    st.ls_ref[singles] = rows
+    st.num_ls.add_(len(singles))
+    return tree
+
+
+HANDOFF_CASES = {
+    "refine-0": dict(kind="refine", n_largest=0, merge_criterion="diameter"),
+    "refine-1": dict(kind="refine", n_largest=1, merge_criterion="diameter"),
+    "refine-3-tolerance": dict(kind="refine", n_largest=3, merge_criterion="tolerance-diameter",
+                               tolerance=0.05, threshold=0.35),
+    "recluster": dict(kind="recluster"),
+    "recluster-shuffled": dict(kind="recluster", shuffle=True, seed=7),
+    "pooled-single-refine": dict(kind="refine", n_largest=2, merge_criterion="diameter",
+                                 pooled_single=True),
+    "pooled-single-recluster": dict(kind="recluster", shuffle=True, seed=3,
+                                    pooled_single=True),
+}
+
+
+@pytest.mark.parametrize("case", list(HANDOFF_CASES))
+def test_the_device_handoff_equals_the_host_path(case) -> None:
+    r"""``refine_inplace`` and ``recluster_inplace`` (survivors gathered on
+    the device, members as one flat id array) give the labels, members,
+    sums, counts and tables of the host path they replaced, bit for bit,
+    with survivor counts that leave a part batch (batch 64), on 256-bit
+    rows."""
+    from bblean_tpu_torch.engine.state_io import state_to_numpy
+
+    kw = dict(HANDOFF_CASES[case])
+    kind, pooled_single = kw.pop("kind"), kw.pop("pooled_single", False)
+    fps = make_fake_fingerprints(400, seed=SEED, pack=False)[:, :256]
+    packed = np.packbits(fps, axis=-1)
+    cfg = dict(threshold=0.3, batch_size=64, initial_capacity=512, route_block=64)
+    if pooled_single:
+        trees = [_pooled_single_tree(packed, 256, **cfg) for _ in range(2)]
+    else:
+        trees = [tb.BatchTree(256, device="cpu", **cfg) for _ in range(2)]
+        for tree in trees:
+            tree.fit_packed(packed, range(len(packed)))
+    device, host = trees
+    n_clusters = device.num_clusters
+    assert n_clusters > 64 and n_clusters % 64
+    if kind == "refine":
+        device.refine_inplace(packed, **kw)
+        _handoff_by_host(host, "refine", X=packed, **kw)
+    else:
+        device.recluster_inplace(**kw)
+        _handoff_by_host(host, "recluster", **kw)
+    np.testing.assert_array_equal(device.assignments(), host.assignments())
+    assert device.cluster_mols() == host.cluster_mols()
+    np.testing.assert_array_equal(device.linear_sums(), host.linear_sums())
+    np.testing.assert_array_equal(device.cluster_sizes(), host.cluster_sizes())
+    a, b = state_to_numpy(device.state), state_to_numpy(host.state)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    if not pooled_single:
+        _assert_sums_are_members(device, fps)
+
+
+def test_cluster_mols_is_the_flat_members_split() -> None:
+    fps = make_fake_fingerprints(300, seed=SEED)
+    tree = tb.BatchTree(2048, threshold=0.3, device="cpu", **CFG_A)
+    tree.fit_packed(fps, range(len(fps)))
+    flat, bounds = tree._cluster_members()
+    mols = tree.cluster_mols()
+    assert len(bounds) == tree.num_clusters + 1 and bounds[-1] == len(flat) == 300
+    assert [flat[bounds[i] : bounds[i + 1]].tolist() for i in range(len(mols))] == mols
+    empty = tb.BatchTree(2048, device="cpu", **CFG_A)
+    assert empty.cluster_mols() == [] and len(empty._cluster_members()[1]) == 1

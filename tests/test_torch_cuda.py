@@ -1161,3 +1161,67 @@ def test_refresh_wrapper_rejects_bad_inputs(cuda) -> None:
     for i in (at["row_pk"], at["row_single"], at["order"]):
         with pytest.raises(ValueError, match="needed on the card"):
             rf.refresh_touched(*args[:i], None, *args[i + 1:])
+
+
+# -- the refine's handoff on the card -------------------------------------------
+
+
+def test_refine_holds_one_state_at_a_time(cuda) -> None:
+    r"""A refine of a 200k-row tree gathers its survivors, then drops the
+    fitted tables before the reset makes new ones: its peak allocation,
+    less what was allocated besides the tables, stays below the old
+    state's bytes plus the new state's."""
+    fps = make_fake_fingerprints(200_000, seed=SEED)
+    tree = BatchTree(2048, threshold=0.3, batch_size=8192, initial_capacity=1 << 18,
+                     device=cuda)
+    tree.fit_packed(fps, range(len(fps)))
+    tree.num_clusters
+    torch.cuda.synchronize(cuda)
+    old_bytes = sum(t.nbytes for t in tree.state)
+    other = torch.cuda.memory_allocated(cuda) - old_bytes
+    torch.cuda.reset_peak_memory_stats(cuda)
+    tree.refine_inplace(fps, n_largest=10, merge_criterion="tolerance-diameter")
+    tree.num_clusters
+    torch.cuda.synchronize(cuda)
+    new_bytes = sum(t.nbytes for t in tree.state)
+    peak = torch.cuda.max_memory_allocated(cuda) - other
+    print(f"refine peak {peak} B above the rest; states {old_bytes} + {new_bytes} B")
+    assert peak < old_bytes + new_bytes, (peak, old_bytes, new_bytes)
+
+
+def test_device_handoff_equals_the_host_path_on_the_card(cuda) -> None:
+    r"""On the card, a refine and a recluster (survivors gathered there)
+    give the labels, members, sums and counts of the host path they
+    replaced: dense sums and member lists on the host, an int64 buffer
+    array, the public ``insert_buffers``."""
+    from bblean_tpu_torch.engine.batch import _load_rows_by_mol
+
+    fps = make_fake_fingerprints(20_000, seed=SEED)
+    trees = []
+    for _ in range(2):
+        tree = BatchTree(2048, threshold=0.3, batch_size=1024, device=cuda)
+        tree.fit_packed(fps, range(len(fps)))
+        trees.append(tree)
+    device, host = trees
+    device.refine_inplace(fps, n_largest=3)
+    device.recluster_inplace(shuffle=True, seed=5)
+    sizes, ls, mols = host.cluster_sizes(), host.linear_sums(), host.cluster_mols()
+    order = np.argsort(-sizes, kind="stable")
+    exploded = [m for i in order[:3] for m in mols[i]]
+    host.reset()
+    host.insert_buffers(
+        np.concatenate([ls[order[3:]], sizes[order[3:], None]], axis=1, dtype=np.int64),
+        [mols[i] for i in order[3:]],
+    )
+    host.fit_packed(*_load_rows_by_mol(fps, exploded, 0, True))
+    sizes, ls, mols = host.cluster_sizes(), host.linear_sums(), host.cluster_mols()
+    order = np.random.default_rng(5).permutation(len(sizes))
+    host.reset()
+    host.insert_buffers(
+        np.concatenate([ls[order], sizes[order, None]], axis=1, dtype=np.int64),
+        [mols[i] for i in order],
+    )
+    np.testing.assert_array_equal(device.assignments(), host.assignments())
+    assert device.cluster_mols() == host.cluster_mols()
+    np.testing.assert_array_equal(device.linear_sums(), host.linear_sums())
+    np.testing.assert_array_equal(device.cluster_sizes(), host.cluster_sizes())

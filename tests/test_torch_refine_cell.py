@@ -90,18 +90,22 @@ def _broken(kind: str) -> type:
                 kwargs["n_largest"] += 1
             return super().refine_inplace(X, *args, **kwargs)
 
-        def insert_buffers(self, buffers, mol_index_seqs):
+        def _insert_survivors(self, surv):
             if kind != "survivor split":
-                return super().insert_buffers(buffers, mol_index_seqs)
-            # The largest survivor's last row leaves its buffer and enters
-            # on its own at a threshold no merge passes: counts, sums and
-            # centroids stay exact, and the survivor lies in two clusters
-            buffers, mols = np.array(buffers), [list(m) for m in mol_index_seqs]
-            mol = mols[0].pop()
+                return super()._insert_survivors(surv)
+            # The largest survivor's last row leaves its buffer row (a pool
+            # row on the device) and enters on its own at a threshold no
+            # merge passes: counts, sums and centroids stay exact, and the
+            # survivor lies in two clusters
+            mol = int(surv.mols[surv.bounds[1] - 1])
             bits = np.unpackbits(self._lib[mol]).astype(np.int64)
-            buffers[0, :-1] -= bits
-            buffers[0, -1] -= 1
-            super().insert_buffers(buffers, mols)
+            assert int(surv.ref[0]) >= 0
+            surv.ls[surv.ref[0]] -= torch.from_numpy(bits).to(surv.ls)
+            surv.n[0] -= 1
+            surv.sizes[0] -= 1
+            surv.mols = np.delete(surv.mols, surv.bounds[1] - 1)
+            surv.bounds[1:] -= 1
+            super()._insert_survivors(surv)
             threshold, self.threshold = self.threshold, 2.0
             super().insert_buffers(np.concatenate([bits, [1]])[None], [[mol]])
             self.threshold = threshold
@@ -238,6 +242,30 @@ def test_the_refine_counters_rise_by_its_work():
     assert rise["refine_exploded_rows"] == sizes[:10].sum()
     stages = rise["refine_extract_ns"] + rise["refine_buffers_ns"] + rise["refine_rows_ns"]
     assert min(rise[k] for k in names[3:]) > 0 and 0.9 * wall <= stages <= wall
+
+
+def test_the_device_buffer_rows_count_the_handoff_only():
+    r"""``refine_device_buffer_rows`` rises by what ``refine_buffer_rows``
+    rises in a refine, by the clusters re-inserted in a recluster, and not
+    at all for a user's ``insert_buffers``."""
+    lib = _library()[:1024]
+    tree = _tree(256)
+    tree.fit_packed(lib, range(len(lib)))
+    start = (tb.refine_device_buffer_rows, tb.refine_buffer_rows)
+    tree.refine_inplace(lib, **REFINE)
+    rise = tb.refine_device_buffer_rows - start[0]
+    assert rise > 256 and rise == tb.refine_buffer_rows - start[1]
+    n_clusters = tree.num_clusters
+    start = (tb.refine_device_buffer_rows, tb.refine_buffer_rows)
+    tree.recluster_inplace()
+    assert tb.refine_device_buffer_rows - start[0] == n_clusters
+    assert tb.refine_buffer_rows == start[1]
+    sums = np.unpackbits(lib[:300], axis=-1).astype(np.int64)
+    user = _tree(256)
+    start = tb.refine_device_buffer_rows
+    user.insert_buffers(np.concatenate([sums, np.ones((300, 1), np.int64)], axis=1),
+                        [[i] for i in range(300)])
+    assert tb.refine_device_buffer_rows == start and user.num_clusters > 0
 
 
 # ---- the driver and the readers ----
