@@ -93,7 +93,7 @@ def _route_module(tree_dir: str):
 
         if not route.__file__.startswith(tree_dir):
             raise AssertionError(f"imported {route.__file__}, not from {tree_dir}")
-        route._lib()
+        route.kernel.lib()
     finally:
         sys.path.remove(tree_dir)
     return route

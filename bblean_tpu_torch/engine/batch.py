@@ -80,15 +80,19 @@ from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
 )
-from bblean_tpu_torch.ops import (
-    commit_writes as _commit_writes,
-    leader_election,
-    prefix_commit,
-    refresh,
-    route,
-    tile_search,
-)
+from bblean_tpu_torch.ops import refresh, route, tile_search
 from bblean_tpu_torch.ops.popcount import _popcount_u8
+from bblean_tpu_torch.ops.segments import (
+    _BIG,
+    _drop_add_,
+    _drop_set_,
+    _group_ids_by_key,
+    _icumsum,
+    _isum,
+    _segment_max,
+    _segment_min,
+    _segment_sum,
+)
 from bblean_tpu_torch.ops.tile_search import (
     sorted_search_plan,
     tile_search_planned,
@@ -98,7 +102,6 @@ from bblean_tpu_torch.ops.tile_search import (
 
 __all__ = ["BatchTree", "BatchState"]
 
-_BIG = 1 << 30  # sort key of masked rows
 _I32 = torch.int32
 # Routing/row centroids are exactly 0/1 valued, so int8 products with int32
 # accumulation are exact
@@ -122,18 +125,6 @@ refine_rows_ns = 0
 # Buffer rows assembled on the device from a tree's own tables (a refine's
 # survivors, a recluster's clusters); a user's ``insert_buffers`` adds none
 refine_device_buffer_rows = 0
-
-# A replayed round or split pass advances the kernels' launch counts by what
-# its capture counted (``engine/graphs.py``)
-graphs.count_launches(
-    tile_search, "launches", "row_launches", "generic_launches", "plan_launches"
-)
-graphs.count_launches(
-    route, "route_launches", "best_sim_launches", "wgmma_launches", "generic_launches"
-)
-graphs.count_launches(prefix_commit, "launches")
-graphs.count_launches(leader_election, "launches")
-graphs.count_launches(_commit_writes, "launches")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -360,77 +351,6 @@ def _grow_state(
     )
 
 
-# -- torch counterparts of JAX's segment ops and drop-mode scatters ----------
-
-
-def _isum(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
-    r"""int32 sum (torch sums integers to int64 by default)."""
-    if dim is None:
-        return x.sum(dtype=_I32)
-    return x.sum(dim=dim, dtype=_I32)
-
-
-def _icumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    return torch.cumsum(x, dim=dim, dtype=_I32)
-
-
-def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg.long(), vals)
-
-
-def _segment_min(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    r"""``jax.ops.segment_min``: empty segments hold int32 max."""
-    out = torch.full((n,), torch.iinfo(_I32).max, dtype=_I32, device=vals.device)
-    return out.scatter_reduce_(0, seg.long(), vals.to(_I32), "amin", include_self=False)
-
-
-def _segment_max(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    r"""``jax.ops.segment_max``: empty segments hold int32 min."""
-    out = torch.full((n,), torch.iinfo(_I32).min, dtype=_I32, device=vals.device)
-    return out.scatter_reduce_(0, seg.long(), vals.to(_I32), "amax", include_self=False)
-
-
-def _bcast(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    return mask.view(mask.shape + (1,) * (val.dim() - mask.dim()))
-
-
-def _drop_set_(
-    tab: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, keep: torch.Tensor
-) -> None:
-    r"""In place ``tab[idx] = val`` where ``keep`` and ``idx`` is in range
-    (JAX ``.at[idx].set(val, mode="drop")`` with the masked rows' index
-    out of range).  Kept indices must be unique and must not be the guard
-    (top) slot; masked rows write the guard's own value back to it."""
-    cap = tab.shape[0]
-    keep = keep & (idx < cap)
-    guard = cap - 1
-    i = torch.where(keep, idx, guard).long()
-    val = val.to(tab.dtype)
-    v = torch.where(_bcast(keep, val), val, tab[guard])
-    tab.index_put_((i,), v)
-
-
-def _drop_add_(
-    tab: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, keep: torch.Tensor
-) -> None:
-    r"""In place ``tab[idx] += val`` where ``keep`` and ``idx`` is in range;
-    masked rows add zero to rows spread over the table (integer adds are
-    exact in any order, and spreading avoids one hot address)."""
-    cap = tab.shape[0]
-    keep = keep & (idx < cap)
-    spread = torch.arange(idx.shape[0], device=idx.device) % cap
-    i = torch.where(keep, idx.long(), spread)
-    val = val.to(tab.dtype)
-    v = torch.where(_bcast(keep, val), val, torch.zeros((), dtype=tab.dtype, device=tab.device))
-    tab.index_add_(0, i, v)
-
-
-def _flat2(tab: torch.Tensor) -> torch.Tensor:
-    r"""View (G, Fc, ...) as (G * Fc, ...) for scatters at (group, pos)."""
-    return tab.view(tab.shape[0] * tab.shape[1], *tab.shape[2:])
-
-
 def _route_groups(
     row_cent: torch.Tensor,  # (M, F) int8 (0/1 values)
     row_pop: torch.Tensor,  # (M,) int32
@@ -444,18 +364,6 @@ def _route_groups(
     groups (first argmax overall: a later block wins only when strictly
     better): ``ops/route.py::route_groups``, the CUDA kernel on the card."""
     return route.route_groups(row_cent, row_pop, g_cent, g_pops, g_num, pending, block)
-
-
-def _group_ids_by_key(
-    key: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    r"""Stable grouping of rows by an int key -> (order, group_of_sorted,
-    is_group_start); equal keys form one group, ordered by row index."""
-    sorted_key, order = torch.sort(key, stable=True)
-    is_start = torch.ones_like(sorted_key, dtype=torch.bool)
-    is_start[1:] = sorted_key[1:] != sorted_key[:-1]
-    group = _icumsum(is_start) - 1
-    return order, group, is_start
 
 
 def _segment_rank(grp: torch.Tensor, mask_sorted: torch.Tensor) -> torch.Tensor:
@@ -1595,8 +1503,8 @@ class BatchTree:
         m = self.batch_size
         dev_fps = torch.as_tensor(dev_fps).to(self.device, torch.uint8)
         if self.device.type == "cuda":
-            tile_search._lib()
-            refresh._lib()
+            tile_search.kernel.lib()
+            refresh.kernel.lib()
         thr, tol = self._scalars()
         rows = _slice_prep_fp_rows_impl(dev_fps, 0, 0, m, self.n_features)
         self.state, _assigned, _enc = _batch_step_impl(

@@ -38,9 +38,9 @@ buffers, so the CPU tests hold the buffer handling.
 
 The kernel wrappers count launches at dispatch; a capture launches nothing
 and a replay launches without Python.  So each program records, at
-capture, how much each registered counter (:func:`count_launches`) rose,
-takes the capture's own increments back, and adds the record at each
-replay.
+capture, how much each launch counter the wrappers name
+(``ops/_kernel.py::counters``) rose, takes the capture's own increments
+back, and adds the record at each replay.
 """
 
 from __future__ import annotations
@@ -51,9 +51,10 @@ import weakref
 import torch
 
 from bblean_tpu_torch.engine import spans
+from bblean_tpu_torch.ops._kernel import counters as _counters
 
 __all__ = [
-    "Buffers", "Program", "buffers", "run", "count_launches", "observers",
+    "Buffers", "Program", "buffers", "run", "observers",
     "captures", "replays", "warmups",
 ]
 
@@ -70,7 +71,6 @@ observers: list[tp.Callable[["Program", str], None]] = []
 # can keep records in its ``notes``)
 capturing: "Program | None" = None
 
-_counters: list[tuple[tp.Any, str]] = []
 _programs: dict[tuple, "Program"] = {}
 _buffer_sets: "weakref.WeakValueDictionary[tuple, Buffers]" = weakref.WeakValueDictionary()
 _streams: dict[torch.device, torch.cuda.Stream] = {}
@@ -99,14 +99,6 @@ def _pool(device: torch.device) -> _Pool:
     if pool is None:
         pool = _pools[device] = _Pool(device)
     return pool
-
-
-def count_launches(module: tp.Any, *names: str) -> None:
-    r"""Register integer launch counters (``module.<name>``) that replays
-    advance by what their capture counted."""
-    for name in names:
-        if (module, name) not in _counters:
-            _counters.append((module, name))
 
 
 def buffers(tag: tp.Hashable, device: torch.device, specs: dict) -> Buffers:

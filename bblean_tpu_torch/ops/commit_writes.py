@@ -42,27 +42,23 @@ capacity (JAX's ``mode="drop"``); kept indices are unique, so the guard
 row keeps its value.  The kernel's tables equal the plain version's bit
 for bit.
 
-Dispatch: tensors on the CPU go to :func:`commit_writes_plain` (the torch
-chain of (M, F) planes the engine ran before: gathers, selects, the
-segment sums, the vote and the drop-mode scatters); tensors on a CUDA
-device go to the hand-written kernel of ``csrc/commit_writes.cu`` and
-anything it does not take raises.  There is no fallback from the kernel
-to the plain version.  ``launches`` counts the wrapper's calls that
-launched the kernel (each call launches its two phases: the sets, refs and
-creations' counts, then the adds, segment counts and tile cells).
+``launches`` counts the calls that launched the kernel of
+``csrc/commit_writes.cu`` (``ops/_kernel.py``: how a wrapper dispatches);
+each launches its two phases: the sets, refs and creations' counts, then
+the adds, segment counts and tile cells.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from bblean_tpu_torch.ops import _kernel
 from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
 from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
 )
+from bblean_tpu_torch.ops.segments import _drop_add_, _drop_set_, _flat2, _segment_sum
 
 __all__ = [
     "commit_writes",
@@ -71,12 +67,14 @@ __all__ = [
 ]
 
 _I32 = torch.int32
-_SOURCE = "commit_writes.cu"
 
 # Calls of commit_writes that launched the kernel
 launches = 0
+_kernel.count_launches(__name__, "launches")
 
-_kernel_lib: ctypes.CDLL | None = None
+kernel = _kernel.Kernel(
+    "commit-writes", "commit_writes.cu", {"bb_commit_writes": ("p" * 33 + "i" * 6 + "p", "i")}
+)
 
 # The (M,) inputs, in argument order: name -> dtype (every argument before
 # them is a table or an (M, .) row plane)
@@ -88,19 +86,6 @@ _ROW_INPUTS = {
     "ref_create": _I32, "create_commit": torch.bool, "created_n": _I32,
     "pool_created_n": _I32, "cell": _I32, "new_slot": _I32,
 }
-
-
-def _lib() -> ctypes.CDLL:
-    global _kernel_lib
-    if _kernel_lib is None:
-        from bblean_tpu_torch._build import load_kernel_library
-
-        lib = load_kernel_library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_commit_writes.argtypes = [p] * 33 + [i] * 6 + [p]
-        lib.bb_commit_writes.restype = i
-        _kernel_lib = lib
-    return _kernel_lib
 
 
 def commit_writes_plain(
@@ -138,8 +123,6 @@ def commit_writes_plain(
     new_slot: torch.Tensor,  # (M,) int32
 ) -> None:
     r"""The module's contract with torch ops on (M, F) planes."""
-    from bblean_tpu_torch.engine.batch import _drop_add_, _drop_set_, _flat2, _segment_sum
-
     m, n_features = row_ls.shape
     best_l = best_s.long()
     agrp_l = agrp.long()
@@ -177,40 +160,19 @@ def commit_writes_plain(
     _drop_add_(n, new_slot, pool_created_n, create_commit)
 
 
-def _check(tables: dict, rows: dict, m: int) -> torch.device:
-    r"""Raise unless every tensor is on one CUDA device, contiguous, of its
-    dtype and shape (``tables``: name -> (tensor, dtype, shape); ``rows``:
-    name -> tensor, of :data:`_ROW_INPUTS`'s dtype and shape (M,))."""
-    named = dict(tables)
-    named.update({k: (t, _ROW_INPUTS[k], (m,)) for k, t in rows.items()})
-    dev = named["ls"][0].device
-    for name, (t, dtype, shape) in named.items():
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"commit-writes kernel needs every tensor on one CUDA device; "
-                f"{name} is on {t.device}, ls on {dev}"
-            )
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"commit-writes kernel: {name} must be {dtype} of shape {shape}, "
-                f"got {t.dtype} of shape {tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"commit-writes kernel: {name} must be contiguous")
-    return dev
-
-
-def _launch(ls, t_pk, t_pops, t_slot, ls_ref, n, group, pos, row_ls, row_pk, gj_ls,
-            *row_args) -> None:
+def _launch(*args) -> None:
     global launches
+    if any(t is None for t in args):
+        raise ValueError("commit-writes kernel: every tensor is needed on the card")
+    ls, t_pk, t_pops, t_slot, ls_ref, n, group, pos, row_ls, row_pk, gj_ls = args[:11]
     if row_ls.dim() != 2 or ls.dim() != 2 or t_pk.dim() != 3:
         raise ValueError("commit-writes kernel: row_ls and ls must be 2-d, t_pk 3-d")
     m, f = row_ls.shape
     f8 = (f + 7) // 8
     g_cap, fc, _ = t_pk.shape
     c_cap = group.shape[0]
-    rows = dict(zip(_ROW_INPUTS, row_args))
-    dev = _check(
+    rows = dict(zip(_ROW_INPUTS, args[11:]))
+    dev = kernel.check(
         {
             "ls": (ls, _I32, (ls.shape[0], f)),
             "t_pk": (t_pk, torch.uint8, (g_cap, fc, f8)),
@@ -223,26 +185,19 @@ def _launch(ls, t_pk, t_pops, t_slot, ls_ref, n, group, pos, row_ls, row_pk, gj_
             "row_ls": (row_ls, _I32, (m, f)),
             "row_pk": (row_pk, torch.uint8, (m, f8)),
             "gj_ls": (gj_ls, _I32, (m, f)),
+            **{k: (t, _ROW_INPUTS[k], (m,)) for k, t in rows.items()},
         },
-        rows, m,
     )
     if m == 0 or f == 0 or min(ls.shape[0], g_cap, fc, c_cap) == 0:
         return  # nothing can be written: no launch
-    lib = _lib()
-    with torch.cuda.device(dev):
-        # Each segment's writer position; the kernel reads an entry only
-        # where it names a writer of that segment, so it needs no reset
-        seg_writer = torch.empty((m,), dtype=_I32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bb_commit_writes(
-            ls.data_ptr(), t_pk.data_ptr(), t_pops.data_ptr(), t_slot.data_ptr(),
-            ls_ref.data_ptr(), n.data_ptr(), group.data_ptr(), pos.data_ptr(),
-            row_ls.data_ptr(), row_pk.data_ptr(), gj_ls.data_ptr(),
-            *(t.data_ptr() for t in rows.values()), seg_writer.data_ptr(),
-            m, f, ls.shape[0], g_cap, fc, c_cap, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"commit-writes kernel launch failed: CUDA error {err}")
+    # Each segment's writer position; the kernel reads an entry only where
+    # it names a writer of that segment, so it needs no reset
+    seg_writer = torch.empty((m,), dtype=_I32, device=dev)
+    kernel.launch(
+        "bb_commit_writes", dev, ls, t_pk, t_pops, t_slot, ls_ref, n, group, pos,
+        row_ls, row_pk, gj_ls, *rows.values(), seg_writer,
+        m, f, ls.shape[0], g_cap, fc, c_cap,
+    )
     launches += 1
 
 

@@ -33,16 +33,13 @@ every later read of ``lead_of`` by ``leader | join`` (the cohesion key,
 ``:631`` and the joining rows' slots ``:643``).  Sims are
 Tanimoto values (finite, at least 0).
 
-Dispatch: tensors on the CPU go to :func:`elect_leaders_plain` (the torch
-chain of (M, M) planes the engine ran before, with the int8 Gram of the
-rejected rows where there are no sims), which computes every row; tensors
-on a CUDA device go to the hand-written kernel of
-``csrc/leader_election.cu`` and anything it does not take raises (the
-kernel takes the packed rows, never ``sims``, and needs ``plan``).  There
-is no fallback from the kernel to the plain version.  ``launches`` counts
-the wrapper's calls that launched the kernel (each call launches its three
-phases: the rejected rows listed by group, the leaders, each non-leader's
-best leader).  The kernel lists the rejected rows by group from ``plan``,
+The plain version (the torch chain of (M, M) planes the engine ran before,
+with the int8 Gram of the rejected rows where there are no sims) computes
+every row.  The kernel of ``csrc/leader_election.cu`` (``ops/_kernel.py``:
+how a wrapper dispatches) takes the packed rows, never ``sims``, and needs
+``plan``; ``launches`` counts the calls that launched it (each launches its
+three phases: the rejected rows listed by group, the leaders, each
+non-leader's best leader).  The kernel lists the rejected rows by group from ``plan``,
 the step's sort plan ``(order, skey)``: the step's rows sorted stably by
 group, in which every row that may be rejected sits in its group's segment
 in row order (a wide round's rows are the step's).  A narrow round's rows
@@ -55,10 +52,9 @@ comes from the wrapper, so a call captures into a CUDA graph.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from bblean_tpu_torch.ops import _kernel
 from bblean_tpu_torch.ops.packing import unpack_fingerprints_device
 from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
 
@@ -70,27 +66,18 @@ __all__ = [
 ]
 
 _NEG = -2.0  # below any similarity
-_SOURCE = "leader_election.cu"
 
 # Calls of elect_leaders that launched the kernel
 launches = 0
+_kernel.count_launches(__name__, "launches")
 
-_kernel_lib: ctypes.CDLL | None = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _kernel_lib
-    if _kernel_lib is None:
-        from bblean_tpu_torch._build import load_kernel_library
-
-        lib = load_kernel_library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_leader_election.argtypes = [p] * 12 + [i] * 3 + [p]
-        lib.bb_leader_election.restype = i
-        lib.bb_leader_election_scratch.argtypes = [i, i]
-        lib.bb_leader_election_scratch.restype = ctypes.c_size_t
-        _kernel_lib = lib
-    return _kernel_lib
+kernel = _kernel.Kernel(
+    "leader-election", "leader_election.cu",
+    {
+        "bb_leader_election": ("p" * 12 + "i" * 3 + "p", "i"),
+        "bb_leader_election_scratch": ("ii", "z"),
+    },
+)
 
 
 def tanimoto_gram(
@@ -140,29 +127,6 @@ def elect_leaders_plain(
     return leads, lead_of, best_lead_sim
 
 
-def _check(named: dict) -> torch.device:
-    r"""Raise unless every given tensor is on one CUDA device, contiguous,
-    of its dtype and shape (``named``: name -> (tensor or None, dtype,
-    shape)); returns the device."""
-    dev = named["rejected"][0].device
-    for name, (t, dtype, shape) in named.items():
-        if t is None:
-            continue
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"leader-election kernel needs every tensor on one CUDA device; "
-                f"{name} is on {t.device}, rejected on {dev}"
-            )
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"leader-election kernel: {name} must be {dtype} of shape {shape}, "
-                f"got {t.dtype} of shape {tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"leader-election kernel: {name} must be contiguous")
-    return dev
-
-
 def _launch(rejected, force_lead, row_group, threshold, sims=None, row_pk=None,
             row_pop=None, plan=None):
     global launches
@@ -181,7 +145,7 @@ def _launch(rejected, force_lead, row_group, threshold, sims=None, row_pk=None,
     if sel is None and lp != m:
         raise ValueError(f"leader-election kernel: a plan of {lp} rows for {m} rows needs sel")
     f8 = row_pk.shape[1]
-    dev = _check(
+    dev = kernel.check(
         {
             "rejected": (rejected, torch.bool, (m,)),
             "force_lead": (force_lead, torch.bool, (m,)),
@@ -201,21 +165,14 @@ def _launch(rejected, force_lead, row_group, threshold, sims=None, row_pk=None,
     best = torch.empty((m,), dtype=torch.float32, device=dev)
     if m == 0:  # no row: no launch
         return leads, lead_of, best
-    lib = _lib()
-    with torch.cuda.device(dev):
-        scratch = torch.empty(
-            (lib.bb_leader_election_scratch(m, 0 if sel is None else lp),),
-            dtype=torch.uint8, device=dev,
-        )
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bb_leader_election(
-            rejected.data_ptr(), force_lead.data_ptr(), threshold.data_ptr(),
-            row_pk.data_ptr(), row_pop.data_ptr(), order.data_ptr(), skey.data_ptr(),
-            None if sel is None else sel.data_ptr(), leads.data_ptr(), lead_of.data_ptr(),
-            best.data_ptr(), scratch.data_ptr(), m, f8, lp, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"leader-election kernel launch failed: CUDA error {err}")
+    scratch = torch.empty(
+        (kernel.lib().bb_leader_election_scratch(m, 0 if sel is None else lp),),
+        dtype=torch.uint8, device=dev,
+    )
+    kernel.launch(
+        "bb_leader_election", dev, rejected, force_lead, threshold, row_pk, row_pop,
+        order, skey, sel, leads, lead_of, best, scratch, m, f8, lp,
+    )
     launches += 1
     return leads, lead_of, best
 

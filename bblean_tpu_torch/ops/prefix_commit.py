@@ -28,23 +28,18 @@ shape (moments, M), in sorted order.  A row outside ``need`` (a (M,) bool
 in sorted order; None: every row) gets zeros.  Integer sums are exact in
 any order, so the kernel's moments equal the plain version's bit for bit.
 
-Dispatch: tensors on the CPU go to :func:`prefix_commit_moments_plain`
-(today's torch code: the gathers, the masks, ``torch.cumsum``, the int64
-sums); tensors on a CUDA device go to the hand-written kernel of
-``csrc/prefix_commit.cu`` and anything it does not take raises.  There is
-no fallback from the kernel to the plain version.  ``launches`` counts the
-wrapper's calls that launched the kernel: one launch a call, whose blocks
-take (chunk of sorted rows, column tile) items in order, carry the prefix
-across chunks by a decoupled look-back and stage each row slice they read
-in shared memory once.
+``launches`` counts the calls that launched the kernel of
+``csrc/prefix_commit.cu`` (``ops/_kernel.py``: how a wrapper dispatches):
+one launch a call, whose blocks take (chunk of sorted rows, column tile)
+items in order, carry the prefix across chunks by a decoupled look-back
+and stage each row slice they read in shared memory once.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from bblean_tpu_torch.ops import _kernel
 from bblean_tpu_torch.ops.merges import _radius, _reads_old, merge_moments, moment_count
 
 __all__ = [
@@ -54,26 +49,14 @@ __all__ = [
 ]
 
 _I32 = torch.int32
-_SOURCE = "prefix_commit.cu"
 
 # Calls of prefix_commit_moments that launched the kernel
 launches = 0
+_kernel.count_launches(__name__, "launches")
 
-_kernel_lib: ctypes.CDLL | None = None
-_sm_count: dict[int, int] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    global _kernel_lib
-    if _kernel_lib is None:
-        from bblean_tpu_torch._build import load_kernel_library
-
-        lib = load_kernel_library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_prefix_commit.argtypes = [p] * 10 + [i] * 6 + [p]
-        lib.bb_prefix_commit.restype = i
-        _kernel_lib = lib
-    return _kernel_lib
+kernel = _kernel.Kernel(
+    "prefix-commit", "prefix_commit.cu", {"bb_prefix_commit": ("p" * 10 + "i" * 6 + "p", "i")}
+)
 
 
 def prefix_commit_moments_plain(
@@ -114,28 +97,6 @@ def _chunk_rows(m: int, f: int, n_sm: int) -> int:
     return min(_MAX_CHUNK_ROWS, max(1, m * tiles // (_ITEMS_PER_SM * n_sm)))
 
 
-def _check(named: dict) -> None:
-    r"""Raise unless every given tensor is on one CUDA device, contiguous,
-    of its dtype and shape (``named``: name -> (tensor or None, dtype,
-    shape))."""
-    dev = named["row_ls"][0].device
-    for name, (t, dtype, shape) in named.items():
-        if t is None:
-            continue
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"prefix-commit kernel needs every tensor on one CUDA device; "
-                f"{name} is on {t.device}, row_ls on {dev}"
-            )
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"prefix-commit kernel: {name} must be {dtype} of shape {shape}, "
-                f"got {t.dtype} of shape {tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"prefix-commit kernel: {name} must be contiguous")
-
-
 def _launch(
     criterion, row_ls, cand_ls, new_n, old_n, order, mask, seg_start, need=None,
 ) -> torch.Tensor:
@@ -143,7 +104,7 @@ def _launch(
     if row_ls.dim() != 2:
         raise ValueError(f"prefix-commit kernel: row_ls must be 2-d, got {row_ls.dim()}-d")
     m, f = row_ls.shape
-    _check(
+    dev = kernel.check(
         {
             "row_ls": (row_ls, _I32, (m, f)),
             "cand_ls": (cand_ls, _I32, (m, f)),
@@ -156,37 +117,24 @@ def _launch(
         },
     )
     n_mom = moment_count(criterion)
-    dev = row_ls.device
     if n_mom == 0 or m == 0 or f == 0:  # nothing to sum: no launch
         return torch.zeros((n_mom, m), dtype=torch.int64, device=dev)
     bulk = f % 4 == 0 and row_ls.data_ptr() % 16 == 0 and cand_ls.data_ptr() % 16 == 0
-    lib = _lib()
-    with torch.cuda.device(dev):
-        idx = dev.index if dev.index is not None else torch.cuda.current_device()
-        if idx not in _sm_count:
-            _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-        rows = _chunk_rows(m, f, _sm_count[idx])
-        chunks = -(-m // rows)
-        # Zeros: rows outside need stay so, and where F spans several column
-        # tiles the tiles add into it
-        out = torch.zeros((n_mom, m), dtype=torch.int64, device=dev)
-        # With segments: the ticket, then each chunk's flagged tail or
-        # prefix a column (the look-back's words), zeroed
-        status = None
-        if seg_start is not None:
-            status = torch.zeros((1 + chunks * f,), dtype=torch.int64, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [
-            None if t is None else t.data_ptr()
-            for t in (order, mask, seg_start, need, status)
-        ]
-        err = lib.bb_prefix_commit(
-            row_ls.data_ptr(), cand_ls.data_ptr(), *ptrs[:4], new_n.data_ptr(),
-            old_n.data_ptr(), *ptrs[4:], out.data_ptr(),
-            m, f, rows, int(_radius(criterion)), int(_reads_old(criterion)), int(bulk), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"prefix-commit kernel launch failed: CUDA error {err}")
+    rows = _chunk_rows(m, f, _kernel.sm_count(dev))
+    chunks = -(-m // rows)
+    # Zeros: rows outside need stay so, and where F spans several column
+    # tiles the tiles add into it
+    out = torch.zeros((n_mom, m), dtype=torch.int64, device=dev)
+    # With segments: the ticket, then each chunk's flagged tail or prefix a
+    # column (the look-back's words), zeroed
+    status = None
+    if seg_start is not None:
+        status = torch.zeros((1 + chunks * f,), dtype=torch.int64, device=dev)
+    kernel.launch(
+        "bb_prefix_commit", dev, row_ls, cand_ls, order, mask, seg_start, need,
+        new_n, old_n, status, out,
+        m, f, rows, int(_radius(criterion)), int(_reads_old(criterion)), int(bulk),
+    )
     launches += 1
     return out
 

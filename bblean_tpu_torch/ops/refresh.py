@@ -32,13 +32,9 @@ Nothing is written at an index past a table's capacity (JAX's
 ``mode="drop"``).  The kernel's tables equal the plain version's bit for
 bit, whatever the order of its atomic adds: they are integer adds.
 
-Dispatch: tensors on the CPU go to :func:`refresh_touched_plain` (the torch
-chain of (M, F) planes the engine ran before: the sort by group, the
-segment sums, the gathers, the votes and the drop-mode scatters); tensors
-on a CUDA device go to the hand-written kernel of ``csrc/refresh.cu`` and
-anything it does not take raises.  There is no fallback from the kernel to
-the plain version.  ``launches`` counts the wrapper's calls that launched
-the kernel (each call launches its two phases: the fold, then the votes).
+``launches`` counts the calls that launched the kernel of
+``csrc/refresh.cu`` (``ops/_kernel.py``: how a wrapper dispatches); each
+launches its two phases: the fold, then the votes.
 The kernel's scratch, two hash sets and two lists of the touched groups
 and clusters, is made once per (device, stream, rows) and left cleared by
 each call.
@@ -46,14 +42,22 @@ each call.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from bblean_tpu_torch.ops import _kernel
 from bblean_tpu_torch.ops.isim import majority_centroid_from_sums
 from bblean_tpu_torch.ops.packing import (
     pack_fingerprints_device,
     unpack_fingerprints_device,
+)
+from bblean_tpu_torch.ops.segments import (
+    _BIG,
+    _drop_add_,
+    _drop_set_,
+    _flat2,
+    _group_ids_by_key,
+    _isum,
+    _segment_sum,
 )
 
 __all__ = [
@@ -63,27 +67,14 @@ __all__ = [
 ]
 
 _I32 = torch.int32
-_SOURCE = "refresh.cu"
 
 # Calls of refresh_touched that launched the kernel
 launches = 0
+_kernel.count_launches(__name__, "launches")
 
-_kernel_lib: ctypes.CDLL | None = None
+kernel = _kernel.Kernel("refresh", "refresh.cu", {"bb_refresh": ("p" * 18 + "i" * 7 + "p", "i")})
 # (device index, stream, rows) -> the kernel's scratch, all zero between calls
 _scratch: dict[tuple[int, int, int], torch.Tensor] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    global _kernel_lib
-    if _kernel_lib is None:
-        from bblean_tpu_torch._build import load_kernel_library
-
-        lib = load_kernel_library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_refresh.argtypes = [p] * 18 + [i] * 7 + [p]
-        lib.bb_refresh.restype = i
-        _kernel_lib = lib
-    return _kernel_lib
 
 
 def refresh_touched_plain(
@@ -106,16 +97,6 @@ def refresh_touched_plain(
     order: torch.Tensor,  # (M,) int64 (the kernel's; not read here)
 ) -> None:
     r"""The module's contract with torch ops on (M, F) planes."""
-    from bblean_tpu_torch.engine.batch import (
-        _BIG,
-        _drop_add_,
-        _drop_set_,
-        _flat2,
-        _group_ids_by_key,
-        _isum,
-        _segment_sum,
-    )
-
     guard_c = n.shape[0] - 1
     n_features = g_ls.shape[1]
 
@@ -168,26 +149,6 @@ def refresh_touched_plain(
     _drop_set_(g_pops, g_idx, _isum(g_cents, -1), writer)
 
 
-def _check(named: dict) -> torch.device:
-    r"""Raise unless every tensor is on one CUDA device, contiguous, of its
-    dtype and shape (``named``: name -> (tensor, dtype, shape))."""
-    dev = named["g_ls"][0].device
-    for name, (t, dtype, shape) in named.items():
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"refresh kernel needs every tensor on one CUDA device; "
-                f"{name} is on {t.device}, g_ls on {dev}"
-            )
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"refresh kernel: {name} must be {dtype} of shape {shape}, "
-                f"got {t.dtype} of shape {tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"refresh kernel: {name} must be contiguous")
-    return dev
-
-
 def _scratch_for(dev: torch.device, stream: int, m: int) -> tuple[torch.Tensor, int]:
     r"""The kernel's scratch for ``m`` rows on ``stream`` of ``dev``, and
     its hash sets' size: a power of two of at least 2m words each."""
@@ -199,53 +160,47 @@ def _scratch_for(dev: torch.device, stream: int, m: int) -> tuple[torch.Tensor, 
     return buf, h
 
 
-def _launch(g_ls, g_n, t_pk, t_pops, g_cent, g_pops, ls, ls_ref, n, group, pos,
-            assigned, row_ls, row_n, row_pk, row_single, order) -> None:
+def _launch(*args) -> None:
     global launches
+    if any(t is None for t in args):
+        raise ValueError("refresh kernel: every tensor is needed on the card")
+    (g_ls, g_n, t_pk, t_pops, g_cent, g_pops, ls, ls_ref, n, group, pos,
+     assigned, row_ls, row_n, row_pk, row_single, order) = args
     if g_ls.dim() != 2 or row_ls.dim() != 2 or t_pk.dim() != 3:
         raise ValueError("refresh kernel: g_ls and row_ls must be 2-d, t_pk 3-d")
-    if row_pk is None or row_single is None or order is None:
-        raise ValueError("refresh kernel: row_pk, row_single and order are needed on the card")
     m, f = row_ls.shape
     f8 = (f + 7) // 8
     g_cap, fc, _ = t_pk.shape
     c_cap, p_cap = group.shape[0], ls.shape[0]
-    named = {
-        "g_ls": (g_ls, _I32, (g_cap, f)),
-        "g_n": (g_n, _I32, (g_cap,)),
-        "t_pk": (t_pk, torch.uint8, (g_cap, fc, f8)),
-        "t_pops": (t_pops, _I32, (g_cap, fc)),
-        "g_cent": (g_cent, torch.int8, (g_cap, f)),
-        "g_pops": (g_pops, _I32, (g_cap,)),
-        "ls": (ls, _I32, (p_cap, f)),
-        "ls_ref": (ls_ref, _I32, (c_cap,)),
-        "n": (n, _I32, (c_cap,)),
-        "group": (group, _I32, (c_cap,)),
-        "pos": (pos, _I32, (c_cap,)),
-        "assigned": (assigned, _I32, (m,)),
-        "row_ls": (row_ls, _I32, (m, f)),
-        "row_n": (row_n, _I32, (m,)),
-        "row_pk": (row_pk, torch.uint8, (m, f8)),
-        "row_single": (row_single, torch.bool, (m,)),
-        "order": (order, torch.int64, (m,)),
-    }
-    dev = _check(named)
+    dev = kernel.check(
+        {
+            "g_ls": (g_ls, _I32, (g_cap, f)),
+            "g_n": (g_n, _I32, (g_cap,)),
+            "t_pk": (t_pk, torch.uint8, (g_cap, fc, f8)),
+            "t_pops": (t_pops, _I32, (g_cap, fc)),
+            "g_cent": (g_cent, torch.int8, (g_cap, f)),
+            "g_pops": (g_pops, _I32, (g_cap,)),
+            "ls": (ls, _I32, (p_cap, f)),
+            "ls_ref": (ls_ref, _I32, (c_cap,)),
+            "n": (n, _I32, (c_cap,)),
+            "group": (group, _I32, (c_cap,)),
+            "pos": (pos, _I32, (c_cap,)),
+            "assigned": (assigned, _I32, (m,)),
+            "row_ls": (row_ls, _I32, (m, f)),
+            "row_n": (row_n, _I32, (m,)),
+            "row_pk": (row_pk, torch.uint8, (m, f8)),
+            "row_single": (row_single, torch.bool, (m,)),
+            "order": (order, torch.int64, (m,)),
+        },
+    )
     if m == 0 or f == 0 or min(g_cap, fc, c_cap, p_cap) == 0:
         return  # nothing can be written: no launch
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch, h = _scratch_for(dev, stream, m)
-        err = lib.bb_refresh(
-            g_ls.data_ptr(), g_n.data_ptr(), t_pk.data_ptr(), t_pops.data_ptr(),
-            g_cent.data_ptr(), g_pops.data_ptr(), ls.data_ptr(), ls_ref.data_ptr(),
-            n.data_ptr(), group.data_ptr(), pos.data_ptr(), assigned.data_ptr(),
-            row_ls.data_ptr(), row_pk.data_ptr(), row_single.data_ptr(), row_n.data_ptr(),
-            order.data_ptr(), scratch.data_ptr(),
-            m, f, p_cap, c_cap, g_cap, fc, h - 1, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"refresh kernel launch failed: CUDA error {err}")
+    scratch, h = _scratch_for(dev, torch.cuda.current_stream(dev).cuda_stream, m)
+    kernel.launch(
+        "bb_refresh", dev, g_ls, g_n, t_pk, t_pops, g_cent, g_pops, ls, ls_ref, n,
+        group, pos, assigned, row_ls, row_pk, row_single, row_n, order, scratch,
+        m, f, p_cap, c_cap, g_cap, fc, h - 1,
+    )
     launches += 1
 
 

@@ -25,11 +25,9 @@ that is not pending) scores -2.
   pending.
 - :func:`best_group_sim`: the largest ``sim``, starting from -2, as f32.
 
-Dispatch: tensors on the CPU go to the plain versions
-(:func:`route_groups_plain`, :func:`best_group_sim_plain`: ``torch._int_mm``
-per block, then elementwise ops); tensors on a CUDA device go to the
-hand-written kernels of ``csrc/route.cu``, and anything they do not take
-raises.  There is no fallback from a kernel to the plain version.
+The plain versions (:func:`route_groups_plain`, :func:`best_group_sim_plain`)
+run ``torch._int_mm`` per block, then elementwise ops; the card runs the
+kernels of ``csrc/route.cu`` (``ops/_kernel.py``: how a wrapper dispatches).
 
 - The TMA path (F % 16 == 0, F <= 16,384, 16-byte-aligned tables; every
   call of the engine and the merge): a persistent, warp-specialised kernel,
@@ -48,12 +46,12 @@ calls of each wrapper that launched, on either path.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
+from bblean_tpu_torch.ops import _kernel
 from bblean_tpu_torch.ops.tanimoto import _int8_gram, _pad_int8
 
 __all__ = [
@@ -71,7 +69,6 @@ __all__ = [
 
 _NEG = -2.0
 _I32 = torch.int32
-_SOURCE = "route.cu"
 
 # Rows and group columns of one tile of the TMA path (its kBM, kBN); the
 # column ranges are whole multiples of TILE_COLS
@@ -87,6 +84,9 @@ route_launches = 0
 best_sim_launches = 0
 wgmma_launches = 0
 generic_launches = 0
+_kernel.count_launches(
+    __name__, "route_launches", "best_sim_launches", "wgmma_launches", "generic_launches"
+)
 
 # A unit's cost beyond its column tiles (its rows' popcounts, the quad
 # reduction and the partial's writes), in column tiles, for _plan
@@ -96,29 +96,27 @@ _TMA_MAX_F = 16384
 # The offset of a failed tensor-map encoding in bb_route's return value
 _ENCODE_ERROR = 100000
 
-_kernel_lib: ctypes.CDLL | None = None
-_sm_count: dict[int, int] = {}
+
+def _verify(lib) -> None:
+    tile = (lib.bb_route_tile(0), lib.bb_route_tile(1))
+    if tile != (TILE_ROWS, TILE_COLS):
+        raise RuntimeError(
+            f"route.cu has tiles of {tile[0]} rows x {tile[1]} groups, "
+            f"the wrapper expects {TILE_ROWS} x {TILE_COLS}"
+        )
 
 
-def _lib() -> ctypes.CDLL:
-    global _kernel_lib
-    if _kernel_lib is None:
-        from bblean_tpu_torch._build import load_kernel_library
+def _error_text(err: int) -> str | None:
+    if err >= _ENCODE_ERROR:
+        return f"route kernel: TMA descriptor refused: CUresult {err - _ENCODE_ERROR}"
+    return None
 
-        lib = load_kernel_library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_route.argtypes = [p] * 8 + [i] * 12 + [p]
-        lib.bb_route.restype = i
-        lib.bb_route_tile.argtypes = [i]
-        lib.bb_route_tile.restype = i
-        tile = (lib.bb_route_tile(0), lib.bb_route_tile(1))
-        if tile != (TILE_ROWS, TILE_COLS):
-            raise RuntimeError(
-                f"{_SOURCE} has tiles of {tile[0]} rows x {tile[1]} groups, "
-                f"the wrapper expects {TILE_ROWS} x {TILE_COLS}"
-            )
-        _kernel_lib = lib
-    return _kernel_lib
+
+kernel = _kernel.Kernel(
+    "route", "route.cu",
+    {"bb_route": ("p" * 8 + "i" * 12 + "p", "i"), "bb_route_tile": ("i", "i")},
+    verify=_verify, error_text=_error_text,
+)
 
 
 def route_groups_plain(
@@ -237,90 +235,56 @@ def _plan(m: int, g_num: int, last_start: int, shift: int, n_sm: int) -> _Plan:
     return _Plan(span, -(-seg1_end // span), seg1_end, n_ranges, units, min(units, n_sm))
 
 
-def _check_inputs(tensors: dict, g_num: int, block: int) -> None:
-    r"""Raise unless every tensor is on one CUDA device with the kernel's
-    dtype, rank and contiguity, the shapes agree and ``0 <= g_num <= G_cap``.
-    ``tensors`` maps a name to (tensor, dtype, ndim); the first is the
-    (M, F) row table."""
-    first, (t0, _dt, _nd) = next(iter(tensors.items()))
-    dev = t0.device
-    for name, (t, dtype, ndim) in tensors.items():
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"route kernel needs every tensor on one CUDA device; {name} is "
-                f"on {t.device}, {first} on {dev}"
-            )
-        if t.dtype != dtype or t.dim() != ndim:
-            raise ValueError(
-                f"route kernel: {name} must be {ndim}-d {dtype}, got "
-                f"{t.dim()}-d {t.dtype}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"route kernel: {name} must be contiguous")
-    (m, f), (g_cap, gf) = t0.shape, tensors["g_cent"][0].shape
+def _launch(rows, pops, g_cent, g_pops, g_num, pending, block) -> torch.Tensor:
+    r"""One launch of the kernel: the route when ``pending`` is given (int32
+    group per row), the twin when it is None (f32 best sim per row).  The
+    tensors' ranks are checked, then their shapes' relations and
+    ``0 <= g_num <= G_cap``."""
+    global route_launches, best_sim_launches, wgmma_launches, generic_launches
+    argmax = pending is not None
+    mat, vec = (None, None), (None,)
+    checked = {
+        "rows": (rows, torch.int8, mat),
+        "pops": (pops, torch.int32, vec),
+        "g_cent": (g_cent, torch.int8, mat),
+        "g_pops": (g_pops, torch.int32, vec),
+        "pending": (pending, torch.bool, vec),
+    }
+    dev = kernel.check(checked)
+    (m, f), (g_cap, gf) = rows.shape, g_cent.shape
     if f < 1 or g_cap < 1 or gf != f:
         raise ValueError(
             f"route kernel: rows (M, {f}) and centroids ({g_cap}, {gf}) must "
             f"share a width of at least 1 over at least one group"
         )
-    for name, (t, _dt, ndim) in tensors.items():
+    for name, (t, _dt, shape) in checked.items():
         want = g_cap if name == "g_pops" else m
-        if ndim == 1 and t.shape[0] != want:
+        if t is not None and len(shape) == 1 and t.shape[0] != want:
             raise ValueError(f"route kernel: {name} must have {want} rows")
     if not 0 <= g_num <= g_cap or block < 1:
         raise ValueError(
             f"route kernel: need 0 <= g_num <= G_cap and block >= 1; got "
             f"g_num={g_num}, G_cap={g_cap}, block={block}"
         )
-
-
-def _launch(rows, pops, g_cent, g_pops, g_num, pending, block) -> torch.Tensor:
-    r"""One launch of the kernel: the route when ``pending`` is given (int32
-    group per row), the twin when it is None (f32 best sim per row)."""
-    global route_launches, best_sim_launches, wgmma_launches, generic_launches
-    argmax = pending is not None
-    checked = {
-        "rows": (rows, torch.int8, 2),
-        "pops": (pops, torch.int32, 1),
-        "g_cent": (g_cent, torch.int8, 2),
-        "g_pops": (g_pops, torch.int32, 1),
-    }
-    if argmax:
-        checked["pending"] = (pending, torch.bool, 1)
-    _check_inputs(checked, g_num, block)
-    dev = rows.device
-    m, f = rows.shape
     if m == 0 or g_num == 0:  # no live column: nothing to launch
         if argmax:
             return torch.zeros(m, dtype=_I32, device=dev)
         return torch.full((m,), _NEG, dtype=torch.float32, device=dev)
     out = torch.empty(m, dtype=_I32 if argmax else torch.float32, device=dev)
-    lib = _lib()
     tma = (
         f % 16 == 0 and f <= _TMA_MAX_F
         and rows.data_ptr() % 16 == 0 and g_cent.data_ptr() % 16 == 0
     )
-    g_cap = g_cent.shape[0]
-    with torch.cuda.device(dev):
-        idx = dev.index if dev.index is not None else torch.cuda.current_device()
-        if idx not in _sm_count:
-            _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-        last_start, shift = _last_block(g_cap, g_num, block)
-        plan = _plan(m, g_num, last_start, shift, _sm_count[idx])
-        part_sim = torch.empty((plan.n_ranges, m), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((plan.n_ranges, m) if argmax else (0,), dtype=_I32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bb_route(
-            rows.data_ptr(), pops.data_ptr(), g_cent.data_ptr(), g_pops.data_ptr(),
-            pending.data_ptr() if argmax else None, part_sim.data_ptr(),
-            part_idx.data_ptr() if argmax else None, out.data_ptr(),
-            m, f, g_cap, g_num, plan.span, plan.s1, plan.seg1_end, shift,
-            plan.n_ranges, plan.grid, int(argmax), int(tma), stream,
-        )
-    if err >= _ENCODE_ERROR:
-        raise RuntimeError(f"route kernel: TMA descriptor refused: CUresult {err - _ENCODE_ERROR}")
-    if err != 0:
-        raise RuntimeError(f"route kernel launch failed: CUDA error {err}")
+    last_start, shift = _last_block(g_cap, g_num, block)
+    plan = _plan(m, g_num, last_start, shift, _kernel.sm_count(dev))
+    part_sim = torch.empty((plan.n_ranges, m), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((plan.n_ranges, m) if argmax else (0,), dtype=_I32, device=dev)
+    kernel.launch(
+        "bb_route", dev, rows, pops, g_cent, g_pops, pending, part_sim,
+        part_idx if argmax else None, out,
+        m, f, g_cap, g_num, plan.span, plan.s1, plan.seg1_end, shift,
+        plan.n_ranges, plan.grid, int(argmax), int(tma),
+    )
     if argmax:
         route_launches += 1
     else:

@@ -18,18 +18,15 @@ Contract, equal to ``bblean_tpu/engine/batch.py::_search_tiles``: equal
 sims for every row, and equal slots wherever ``sim > -1.5``; rows that are
 not pending get sim -2; the returned slot is clamped to ``>= 0``.
 
-Dispatch: tensors on the CPU go to the plain version
-(:func:`search_tiles_plain`); tensors on a CUDA device go to a kernel, and
-anything the kernel does not take raises.  There is no fallback from a
-kernel to the plain version.
+The plain version is :func:`search_tiles_plain` (``ops/_kernel.py``: how a
+wrapper dispatches).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from bblean_tpu_torch.ops import _kernel
 from bblean_tpu_torch.ops.popcount import _popcount_u8
 
 __all__ = [
@@ -48,7 +45,6 @@ __all__ = [
 ]
 
 _NEG = -2.0
-_SOURCE = "tile_search.cu"
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # Rows of the plain version's gather per chunk, bounded so that the
 # (rows, Fc, F8) intermediates stay near this many bytes
@@ -67,33 +63,29 @@ launches = 0
 row_launches = 0
 generic_launches = 0
 plan_launches = 0
+_kernel.count_launches(
+    __name__, "launches", "row_launches", "generic_launches", "plan_launches"
+)
 
 
-_kernel_lib: ctypes.CDLL | None = None
+def _verify(lib) -> None:
+    if lib.bb_tile_search_item_rows() != ITEM_ROWS:
+        raise RuntimeError(
+            f"tile_search.cu takes items of {lib.bb_tile_search_item_rows()} rows, "
+            f"the plan makes {ITEM_ROWS}"
+        )
 
 
-def _lib() -> ctypes.CDLL:
-    global _kernel_lib
-    if _kernel_lib is None:
-        from bblean_tpu_torch._build import load_kernel_library
-
-        lib = load_kernel_library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bb_tile_search.argtypes = [p] * 11 + [i] * 5 + [p]
-        lib.bb_tile_search.restype = i
-        lib.bb_plan_items.argtypes = [p, p, i, p]
-        lib.bb_plan_items.restype = i
-        lib.bb_tile_search_smem_bytes.argtypes = [i, i, i]
-        lib.bb_tile_search_smem_bytes.restype = ctypes.c_longlong
-        lib.bb_tile_search_item_rows.argtypes = []
-        lib.bb_tile_search_item_rows.restype = i
-        if lib.bb_tile_search_item_rows() != ITEM_ROWS:
-            raise RuntimeError(
-                f"{_SOURCE} takes items of {lib.bb_tile_search_item_rows()} rows, "
-                f"the plan makes {ITEM_ROWS}"
-            )
-        _kernel_lib = lib
-    return _kernel_lib
+kernel = _kernel.Kernel(
+    "tile search", "tile_search.cu",
+    {
+        "bb_tile_search": ("p" * 11 + "i" * 5 + "p", "i"),
+        "bb_plan_items": ("ppip", "i"),
+        "bb_tile_search_smem_bytes": ("iii", "q"),
+        "bb_tile_search_item_rows": ("", "i"),
+    },
+    verify=_verify,
+)
 
 
 def _clamp_group(group: torch.Tensor, n_groups: int) -> torch.Tensor:
@@ -175,22 +167,10 @@ def plan_items(skey: torch.Tensor) -> torch.Tensor:
     global plan_launches
     if skey.device.type == "cpu":
         return plan_items_plain(skey)
-    if (
-        skey.device.type != "cuda" or skey.dtype != torch.int32
-        or skey.dim() != 1 or not skey.is_contiguous()
-    ):
-        raise ValueError(
-            f"plan kernel needs contiguous 1-d int32 keys on one CUDA device; got "
-            f"{skey.dim()}-d {skey.dtype} on {skey.device}"
-        )
+    dev = kernel.check({"skey": (skey, torch.int32, (None,))})
     m = skey.shape[0]
-    items = torch.empty(m + 1, dtype=torch.int32, device=skey.device)
-    lib = _lib()
-    with torch.cuda.device(skey.device):
-        stream = torch.cuda.current_stream(skey.device).cuda_stream
-        err = lib.bb_plan_items(skey.data_ptr(), items.data_ptr(), m, stream)
-    if err != 0:
-        raise RuntimeError(f"plan kernel launch failed: CUDA error {err}")
+    items = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    kernel.launch("bb_plan_items", dev, skey, items, m)
     plan_launches += 1
     return items
 
@@ -211,66 +191,42 @@ def sorted_search_plan(
     return order, skey, plan_items(skey)
 
 
-def _check_kernel_inputs(tensors: dict) -> None:
-    r"""Raise unless every tensor is on one CUDA device with the kernel's
-    dtype, rank and contiguity, and the shapes agree.  ``tensors`` maps a
-    name to (tensor, dtype, ndim); the first is the (M, F8) row table, whose
-    device is the launch device, and every 1-d tensor must have M rows
-    (M + 1 for ``items``)."""
-    first, (t0, _dt, _nd) = next(iter(tensors.items()))
-    dev = t0.device
-    for name, (t, dtype, ndim) in tensors.items():
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"tile search kernel needs every tensor on one CUDA device; "
-                f"{name} is on {t.device}, {first} on {dev}"
-            )
-        if t.dtype != dtype or t.dim() != ndim:
-            raise ValueError(
-                f"tile search kernel: {name} must be {ndim}-d {dtype}, got "
-                f"{t.dim()}-d {t.dtype}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"tile search kernel: {name} must be contiguous")
-    m, f8 = t0.shape
-    t_pk, t_pops, t_slot = (tensors[k][0] for k in ("t_pk", "t_pops", "t_slot"))
+def _launch(
+    rows, pops, key, order, items, t_pk, t_pops, t_slot, pending
+) -> tuple[torch.Tensor, torch.Tensor]:
+    r"""One launch of the kernel: sorted front end when ``order`` and
+    ``items`` are given, per-row front end when both are None.  The
+    tensors' ranks are checked, then their shapes' relations: every 1-d
+    tensor has M rows (M + 1 for ``items``)."""
+    global launches, row_launches, generic_launches
+    vec = (None,)
+    checked = {
+        "rows": (rows, torch.uint8, (None, None)),
+        "pops": (pops, torch.int32, vec),
+        "key": (key, torch.int32, vec),
+        "t_pk": (t_pk, torch.uint8, (None, None, None)),
+        "t_pops": (t_pops, torch.int32, (None, None)),
+        "t_slot": (t_slot, torch.int32, (None, None)),
+        "pending": (pending, torch.bool, vec),
+        "order": (order, torch.int64, vec),
+        "items": (items, torch.int32, vec),
+    }
+    sorted_mode = order is not None
+    if sorted_mode != (items is not None):
+        raise ValueError("tile search kernel: order and items go together")
+    dev = kernel.check(checked)
+    m, f8 = rows.shape
     g, fc, tf8 = t_pk.shape
     if m < 1 or fc < 1 or f8 < 1 or g < 1:
         raise ValueError(f"tile search kernel: empty shape M={m} Fc={fc} F8={f8} G={g}")
     if tf8 != f8 or t_pops.shape != (g, fc) or t_slot.shape != (g, fc):
         raise ValueError("tile search kernel: tile tables disagree in shape")
-    for name, (t, _dt, ndim) in tensors.items():
-        rows = m + 1 if name == "items" else m
-        if ndim == 1 and t.shape[0] != rows:
-            raise ValueError(f"tile search kernel: {name} must have {rows} rows")
-
-
-def _launch(
-    rows, pops, key, order, items, t_pk, t_pops, t_slot, pending
-) -> tuple[torch.Tensor, torch.Tensor]:
-    r"""One launch of the kernel: sorted front end when ``order`` and
-    ``items`` are given, per-row front end when both are None."""
-    global launches, row_launches, generic_launches
-    checked = {
-        "rows": (rows, torch.uint8, 2),
-        "pops": (pops, torch.int32, 1),
-        "key": (key, torch.int32, 1),
-        "t_pk": (t_pk, torch.uint8, 3),
-        "t_pops": (t_pops, torch.int32, 2),
-        "t_slot": (t_slot, torch.int32, 2),
-        "pending": (pending, torch.bool, 1),
-    }
-    sorted_mode = order is not None
-    if sorted_mode:
-        checked["order"] = (order, torch.int64, 1)
-        checked["items"] = (items, torch.int32, 1)
-    _check_kernel_inputs(checked)
-    dev = rows.device
-    m, f8 = rows.shape
-    g, fc = t_pk.shape[:2]
+    for name, (t, _dt, shape) in checked.items():
+        want = m + 1 if name == "items" else m
+        if t is not None and len(shape) == 1 and t.shape[0] != want:
+            raise ValueError(f"tile search kernel: {name} must have {want} rows")
     bulk = f8 % 16 == 0 and rows.data_ptr() % 16 == 0 and t_pk.data_ptr() % 16 == 0
-    lib = _lib()
-    smem = lib.bb_tile_search_smem_bytes(f8, int(bulk), int(sorted_mode))
+    smem = kernel.lib().bb_tile_search_smem_bytes(f8, int(bulk), int(sorted_mode))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"tile search kernel: F8={f8} rows need {smem} B of shared memory "
@@ -280,18 +236,10 @@ def _launch(
         )
     out_sim = torch.empty(m, dtype=torch.float32, device=dev)
     out_slot = torch.empty(m, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bb_tile_search(
-            rows.data_ptr(), pops.data_ptr(), key.data_ptr(),
-            order.data_ptr() if sorted_mode else None,
-            items.data_ptr() if sorted_mode else None,
-            t_pk.data_ptr(), t_pops.data_ptr(), t_slot.data_ptr(),
-            pending.data_ptr(), out_sim.data_ptr(), out_slot.data_ptr(),
-            m, g, fc, f8, int(bulk), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"tile search kernel launch failed: CUDA error {err}")
+    kernel.launch(
+        "bb_tile_search", dev, rows, pops, key, order, items, t_pk, t_pops, t_slot,
+        pending, out_sim, out_slot, m, g, fc, f8, int(bulk),
+    )
     if sorted_mode:
         launches += 1
     else:

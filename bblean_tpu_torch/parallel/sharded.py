@@ -70,9 +70,7 @@ from bblean_tpu_torch.engine.batch import (
     _grow_state,
     _host,
     _host_int,
-    _icumsum,
     _init_state,
-    _isum,
     _load_rows_by_mol,
     _next_pow2,
     _pad_rows,
@@ -83,6 +81,7 @@ from bblean_tpu_torch.engine.batch import (
     _split_topk_impl,
 )
 from bblean_tpu_torch.ops import route, tile_search
+from bblean_tpu_torch.ops.segments import _icumsum, _isum
 from bblean_tpu_torch.parallel.mesh import Mesh, get_mesh
 
 __all__ = ["sharded_fit", "ShardedClusters", "ShardedForest"]
@@ -556,7 +555,7 @@ class ShardedForest:
         for i, st in self._live():
             dev = self.devices[i]
             if dev.type == "cuda":
-                tile_search._lib()
+                tile_search.kernel.lib()
             buf = torch.zeros((k * m, self.n_bytes), dtype=torch.uint8, device=dev)
             thr, tol = self._scalars(dev)
             for _ in range(max(2, self.pipeline_depth)):

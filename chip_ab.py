@@ -83,7 +83,7 @@ def _use(tree_dir: str):
 
     if not ts.__file__.startswith(os.path.abspath(tree_dir)):
         raise AssertionError(f"imported {ts.__file__}, not from {tree_dir}")
-    ts._lib()
+    ts.kernel.lib()
     return BatchTree, engine, ts
 
 

@@ -375,7 +375,7 @@ def phase_device() -> str:
     t0 = time.perf_counter()
     kernels = (tile_search, route, prefix_commit, leader_election, commit_writes)
     with ThreadPoolExecutor(len(kernels)) as pool:
-        for built in [pool.submit(m._lib) for m in kernels]:
+        for built in [pool.submit(m.kernel.lib) for m in kernels]:
             built.result()
     built = time.perf_counter() - t0
     secs = ", ".join(
@@ -3028,8 +3028,9 @@ class _ReplayTwin:
 
     def __init__(self, at: dict | None = None, prefix: "_PrefixWork | None" = None) -> None:
         from bblean_tpu_torch.engine import batch as engine, graphs
+        from bblean_tpu_torch.ops import _kernel
 
-        self.engine, self.graphs = engine, graphs
+        self.engine, self.graphs, self.counters = engine, graphs, _kernel.counters
         self.at = at or {"wide": 5, "narrow": 2}
         self.prefix = prefix
         self.seen = dict.fromkeys(self.at, 0)
@@ -3054,7 +3055,7 @@ class _ReplayTwin:
             return
         tables, bufs = self._clone
         self._clone = None
-        counters = [(m, n, getattr(m, n)) for m, n in self.graphs._counters]
+        counters = [(m, n, getattr(m, n)) for m, n in self.counters]
         if self.prefix is not None:
             self.prefix.sampling = True
         try:

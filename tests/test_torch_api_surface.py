@@ -111,6 +111,15 @@ PORT_ONLY = {
         "refresh, engine/batch.py::_refresh_touched, which JAX fuses inside "
         "the jitted step"
     ),
+    "ops._kernel": (
+        "how the wrappers load, check, launch and count the CUDA kernels "
+        "(JAX's Pallas kernels need no binding)"
+    ),
+    "ops.segments": (
+        "the segment ops and drop-mode scatters that engine/batch.py and the "
+        "kernels' plain versions share (JAX has jax.ops.segment_* and "
+        ".at[].set(mode='drop'))"
+    ),
 }
 
 

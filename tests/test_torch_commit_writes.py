@@ -217,31 +217,6 @@ def test_library_yardstick_is_the_adders_part() -> None:
     assert torch.equal(ls, args[0])
 
 
-def test_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch) -> None:
-    r"""CPU tensors take the plain version and launch nothing; the
-    kernel's own path takes CUDA tensors only, and a kernel that does not
-    build raises (no fallback)."""
-    rng = np.random.default_rng(SEED + 4)
-    case = chip_smoke.commit_writes_case(rng, 64, 64, "t=0.3 runs")
-    got, ref = chip_smoke.writes_args(case, "cpu"), chip_smoke.writes_args(case, "cpu")
-    before = cw.launches
-    cw.commit_writes(*got)
-    cw.commit_writes_plain(*ref)
-    n_tab = len(chip_smoke.WRITES_TABLES)
-    assert all(torch.equal(a, b) for a, b in zip(got[:n_tab], ref[:n_tab]))
-    assert cw.launches == before
-    with pytest.raises(ValueError, match="CUDA device"):
-        cw._launch(*got)
-
-    def no_build(source):
-        raise RuntimeError(f"nvcc failed to build {source}")
-
-    monkeypatch.setattr(cw, "_kernel_lib", None)
-    monkeypatch.setattr("bblean_tpu_torch._build.load_kernel_library", no_build)
-    with pytest.raises(RuntimeError, match="commit_writes.cu"):
-        cw._lib()
-
-
 def test_insert_round_writes_through_the_wrapper(monkeypatch) -> None:
     r"""Each insert round makes one call of ``commit_writes`` and of
     ``elect_leaders`` (the diameter criterion elects every round), and no

@@ -301,28 +301,6 @@ def test_wide_round_without_row_gram_matches_jax() -> None:
     assert (assigned >= 0).sum() > 3 and int(want["num"]) < pending.sum()  # leaders and joins
 
 
-def test_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch) -> None:
-    r"""CPU tensors take the plain version and launch nothing; the
-    kernel's own path takes CUDA tensors only, and a kernel that does not
-    build raises (no fallback)."""
-    rng = np.random.default_rng(SEED + 7)
-    args = chip_smoke.election_args(chip_smoke.election_case(rng, 64, 64, "t=0.3 groups"), "cpu", "wide")
-    before = le.launches
-    got, ref = le.elect_leaders(*args), le.elect_leaders_plain(*args)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert le.launches == before
-    with pytest.raises(ValueError, match="CUDA device"):
-        le._launch(*args)
-
-    def no_build(source):
-        raise RuntimeError(f"nvcc failed to build {source}")
-
-    monkeypatch.setattr(le, "_kernel_lib", None)
-    monkeypatch.setattr("bblean_tpu_torch._build.load_kernel_library", no_build)
-    with pytest.raises(RuntimeError, match="leader_election.cu"):
-        le._lib()
-
-
 def _listed(rejected: np.ndarray, plan: tuple) -> tuple[np.ndarray, np.ndarray]:
     r"""The rejected rows and their groups as the kernel lists them from
     ``plan`` (``(order, skey)`` over the call's rows, or ``(order, skey,

@@ -1,6 +1,6 @@
 r"""The PyTorch port imports no JAX, and neither it nor ``chip_smoke.py``,
-``chip_profile.py``, ``chip_ab.py`` and ``bench_cuda.py`` import anything of
-the JAX package ``bblean_tpu``.
+``chip_profile.py`` and ``chip_ab.py`` import anything of the JAX package
+``bblean_tpu``.
 
 The import check runs in a subprocess: ``tests/conftest.py`` imports jax
 into the test process itself.  ``chip_smoke.py`` imports the port inside
@@ -48,7 +48,7 @@ def test_port_and_chip_smoke_import_no_jax() -> None:
         "import bblean_tpu_torch.examples.quickstart, bblean_tpu_torch.examples.best_practices\n"
         "import bblean_tpu_torch.examples.dataset_splitting, bblean_tpu_torch.examples.multi_device\n"
         "from bblean_tpu_torch import BitBirch, set_merge\n"
-        "import chip_smoke, chip_profile, chip_ab, bench_cuda\n"
+        "import chip_smoke, chip_profile, chip_ab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'bblean_tpu' or m.startswith('bblean_tpu.')\n"
         "             or m == 'sklearn' or m.startswith('sklearn.'))\n"
@@ -79,7 +79,7 @@ def _imported_modules(path: Path) -> list[str]:
     "path",
     [
         ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_ab.py",
-        ROOT / "bench_cuda.py", *PORT_SOURCES,
+        *PORT_SOURCES,
     ],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
@@ -271,20 +271,6 @@ def test_console_prints_plainly_without_rich(capsys) -> None:
     assert isinstance(_console.get_console(), _console.BBConsole)
     _console.get_console().print_peak_hbm("cpu")  # no device, no line
     assert capsys.readouterr().out == ""
-
-
-def test_bench_cuda_refuses_to_run_without_a_card() -> None:
-    import torch
-
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is available")
-    proc = subprocess.run(
-        [sys.executable, "bench_cuda.py"], cwd=ROOT, capture_output=True,
-        text=True, timeout=120,
-    )
-    assert proc.returncode != 0
-    assert proc.stdout == ""
-    assert "no result" in proc.stderr
 
 
 # Modules of the analysis side and the benchmarks, which must import on a

@@ -292,24 +292,6 @@ def test_tail_equals_merge_accept_batch_before_the_split(criterion, scale) -> No
         assert 0 < int(want.sum()) < c
 
 
-def test_wrapper_runs_the_plain_version_on_the_cpu() -> None:
-    rng = np.random.default_rng(SEED)
-    row_ls, row_n, cand_ls, cand_n, accept, best = map(
-        torch.from_numpy, chip_smoke.prefix_commit_case(rng, 64, 64, "mixed")
-    )
-    order, _grp, start = tb._group_ids_by_key(torch.where(accept, best, 1 << 30))
-    seg = torch.cummax(torch.where(start, torch.arange(64, dtype=torch.int32), 0), 0).values.long()
-    inc = accept[order]
-    new_n, old_n, _s_n = tb._prefix_counts(inc, row_n[order], cand_n[order], seg)
-    args = ("tolerance-radius", row_ls, cand_ls, new_n, old_n, order, inc, seg)
-    before = pc.launches
-    assert torch.equal(pc.prefix_commit_moments(*args), pc.prefix_commit_moments_plain(*args))
-    assert pc.launches == before
-    # The kernel's own path takes CUDA tensors only
-    with pytest.raises(ValueError, match="CUDA device"):
-        pc._launch(*args)
-
-
 def test_chunks_fill_the_card() -> None:
     r"""At both widths of a fit's rounds (2048 bits, 8 column tiles) on 132
     SMs, chunks of 16 rows (a block's two items take 64 KiB, three blocks

@@ -183,30 +183,6 @@ def test_step_hands_the_refresh_its_plan(fit_steps) -> None:
         assert order.dtype == np.int64 and np.array_equal(np.sort(order), np.arange(m))
 
 
-def test_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch) -> None:
-    r"""CPU tensors take the plain version and launch nothing; the
-    kernel's own path takes CUDA tensors only, and a kernel that does not
-    build raises (no fallback)."""
-    case = chip_smoke.refresh_case(np.random.default_rng(SEED + 15), 64, 64, 256, "t=0.3 runs")
-    got, ref = chip_smoke.refresh_args(case, "cpu"), chip_smoke.refresh_args(case, "cpu")
-    before = rf.launches
-    rf.refresh_touched(*got)
-    rf.refresh_touched_plain(*ref)
-    n_tab = len(TABLES)
-    assert all(torch.equal(a, b) for a, b in zip(got[:n_tab], ref[:n_tab]))
-    assert rf.launches == before
-    with pytest.raises(ValueError, match="CUDA device"):
-        rf._launch(*got)
-
-    def no_build(source):
-        raise RuntimeError(f"nvcc failed to build {source}")
-
-    monkeypatch.setattr(rf, "_kernel_lib", None)
-    monkeypatch.setattr("bblean_tpu_torch._build.load_kernel_library", no_build)
-    with pytest.raises(RuntimeError, match="refresh.cu"):
-        rf._lib()
-
-
 @pytest.mark.parametrize("m", [1, 2, 3, 64, 8192, 8193])
 def test_scratch_holds_two_sets_of_twice_the_rows(m) -> None:
     r"""The scratch: two hash sets of a power of two of at least 2M words,

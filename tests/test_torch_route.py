@@ -146,16 +146,6 @@ def test_engine_and_merge_go_through_ops_route(monkeypatch) -> None:
     assert calls[0][1][4:] == (33, args[4], 8) and calls[1][1][4:] == (33, 8)
 
 
-def test_wrappers_raise_off_cpu_without_the_kernel() -> None:
-    r"""Tensors on a device other than the CPU go to the kernel, never to
-    the plain versions: here ("meta" tensors) the wrappers raise."""
-    meta = [torch.from_numpy(a).to("meta") for a in _case(100, 64, 3)]
-    with pytest.raises(ValueError, match="one CUDA device"):
-        route.route_groups(*meta[:4], 33, meta[4], 8)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        route.best_group_sim(*meta[:4], 33, 8)
-
-
 @pytest.mark.parametrize("g_cap,block", [(64, 24), (64, 16), (64, 128), (1000, 1024), (65536, 1000)])
 def test_last_block_maps_columns_like_dynamic_slice(g_cap, block) -> None:
     r"""The kernel's column-to-row map (``_last_block``: rows shifted in

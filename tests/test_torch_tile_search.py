@@ -201,29 +201,6 @@ def test_plan_item_table_matches_reference(runs) -> None:
     np.testing.assert_array_equal(skey.numpy(), key[order.numpy()])
 
 
-def test_wrapper_raises_off_cpu_without_the_kernel() -> None:
-    r"""Tensors on a device other than the CPU go to the kernel, never to
-    the plain version: here ("meta" tensors) the wrapper raises."""
-    m, g, fc, f8 = 8, 2, 4, 8
-    args = _mk(np.random.default_rng(1), m, g, fc, f8, "few")
-    meta = [torch.from_numpy(a).to("meta") for a in args]
-    with pytest.raises(ValueError, match="one CUDA device"):
-        ts.tile_search_sorted(*meta)
-
-
-def test_plan_items_raises_off_cpu_without_the_kernel() -> None:
-    r"""Keys off the CPU go to the plan kernel, never to its plain version:
-    "meta" keys raise, and so do keys of the wrong dtype."""
-    skey = torch.arange(16, dtype=torch.int32)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        ts.plan_items(skey.to("meta"))
-    with pytest.raises(ValueError, match="int32"):
-        ts.plan_items(skey.long().to("meta"))
-    np.testing.assert_array_equal(
-        ts.plan_items(skey).numpy(), ts.plan_items_plain(skey).numpy()
-    )
-
-
 def test_failed_build_raises(monkeypatch, tmp_path) -> None:
     r"""A failed ``nvcc`` build raises (no fallback, no library left)."""
     import subprocess
